@@ -1,0 +1,15 @@
+"""`repro_torch` — the PyTorch/CUDA port of the CM-DARE stack, for one
+NVIDIA H100.
+
+It mirrors `src/repro/` module for module (same module and function
+names, so each file has a twin in the JAX package to be held against) and
+imports nothing of it. Its entry points run on the card unless the caller
+passes ``device="cpu"``; with no CUDA device and no explicit CPU request
+they raise. On the card, every prefill attention and every RMSNorm goes
+through a hand-written kernel (`repro_torch.kernels`); the plain PyTorch
+versions serve CPU tensors and the tests.
+
+This slice ports dense-decoder inference: batched prefill
+(`launch.steps.make_prefill_step`) and the continuous-batching gateway
+(`api.Session.serve`, ``python -m repro_torch serve``).
+"""

@@ -1,0 +1,9 @@
+"""`repro_torch.api` — the port's programmatic surface.
+
+    from repro_torch.api import Session
+    s = Session.from_arch("qwen3-1.7b", smoke=False)
+    s.serve(tokens=16)
+"""
+from repro_torch.api.events import Event, EventBus  # noqa: F401
+from repro_torch.api.serving import ServeReport, generate  # noqa: F401
+from repro_torch.api.session import Session  # noqa: F401

@@ -1,0 +1,7 @@
+from repro_torch.configs.base import (  # noqa: F401
+    MLAConfig,
+    MoEConfig,
+    ModelConfig,
+    SSMConfig,
+)
+from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: F401

@@ -1,0 +1,73 @@
+"""Unified model API of the port: init / loss / prefill / decode — the
+twin of the JAX package's `models/api.py` for the dense family. Other
+families raise until their slice is ported (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer
+
+
+def _module(cfg: ModelConfig):
+    if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family (MoE, MLA, SSM, hybrid, audio, VLM) "
+            "is not ported to repro_torch yet (ROADMAP.md, queue 1 items "
+            "7-9)")
+    return transformer
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
+         device: DeviceLike = None):
+    """Returns (param_values, param_axes) trees. Without a generator the
+    weights are drawn from one seeded with 0 on ``device`` (the card
+    unless ``device="cpu"``)."""
+    mod = _module(cfg)
+    if generator is None:
+        generator = torch.Generator(device=resolve_device(device))
+        generator.manual_seed(0)
+    return L.split_params(mod.init_params(generator, cfg))
+
+
+# ---------------------------------------------------------------------------
+# losses / steps
+# ---------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def forward(params, cfg: ModelConfig, *args, **kw):
+    return _module(cfg).forward(params, cfg, *args, **kw)
+
+
+def prefill(params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Forward returning logits only (inference prefill)."""
+    logits, _ = _module(cfg).forward(params, cfg, batch["tokens"])
+    return logits
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype=torch.bfloat16, device: DeviceLike = None):
+    """Returns (state_values, state_axes) for the decode carrier (the KV
+    cache). The cache is bf16 by default, whatever the model's dtype, as
+    in the reference."""
+    tree = _module(cfg).init_cache(cfg, batch, max_len, dtype,
+                                   resolve_device(device))
+    return L.split_params(tree)
+
+
+def decode_step(params, cfg: ModelConfig, state, tokens, index):
+    return _module(cfg).decode_step(params, cfg, state, tokens, index)

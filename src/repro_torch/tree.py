@@ -1,0 +1,27 @@
+"""Nested-dict parameter trees: the port's stand-in for JAX pytrees.
+
+Parameters, decode state and their logical axes are plain nested dicts
+whose leaves are tensors (or `models.layers.Param`s while a tree is
+being built). Paths join dict keys with ``/``, as the reference
+checkpointer names its arrays (``layers/attn/wq``).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator, Tuple
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """Apply ``fn`` to every leaf; the dict structure is kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) pairs in key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flatten(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+

@@ -1,0 +1,193 @@
+"""The port's kernels held against the JAX package's.
+
+On the CPU the port's kernels are their plain PyTorch versions
+(`repro_torch.kernels.ref`); these tests hold those against the Pallas
+kernels run in interpret mode, with the tolerances of
+tests/test_kernels.py (fwd 2e-5 in fp32, 2e-2 in bf16). The CUDA kernels
+themselves are held against the plain versions on the card by the tests
+marked ``cuda`` (skipped without a card) and by ``chip_smoke.py``.
+
+JAX is imported inside the fixture that needs it, so the ``cuda`` tests
+also run on a machine that has the card and no JAX:
+``python -m pytest -m cuda tests/test_torch_kernels.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def pallas():
+    """The JAX package's kernels (interpret mode on the CPU)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import flash_attention, ops as jops
+    return jnp, flash_attention, jops
+
+
+def _inputs(seed, shapes, dtype):
+    """numpy normals, rounded to `dtype` by each package (exactly)."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return arrs, [torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in arrs]
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.float().cpu().numpy()
+    return np.asarray(t.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", [
+    (1, 128, 128, 4, 4, 64, True),     # MHA causal
+    (2, 128, 128, 4, 2, 32, True),     # GQA
+    (1, 256, 256, 2, 1, 64, True),     # MQA longer
+    (1, 128, 128, 4, 4, 64, False),    # bidirectional
+])
+def test_flash_attention_ref_matches_pallas(pallas, B, Sq, Sk, H, KV, hd,
+                                            causal, dtype):
+    jnp, jfa, _ = pallas
+    tol = _TOL[dtype]
+    shapes = [(B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)]
+    arrs, (tq, tk, tv) = _inputs(0, shapes, dtype)
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in arrs)
+    want_out, want_lse = jfa.flash_attention_fwd(
+        jq, jk, jv, causal=causal, block_q=64, block_k=64, interpret=True)
+    out, lse = ref.flash_attention_ref(tq, tk, tv, causal)
+    assert out.dtype == tq.dtype and lse.dtype == torch.float32
+    assert lse.shape == (B, H, Sq)
+    np.testing.assert_allclose(_np(out), _np(want_out), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(lse), _np(want_lse), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 8, 128), (5, 2048), (3, 4, 2, 32)])
+def test_rmsnorm_ref_matches_pallas(pallas, shape, dtype):
+    jnp, _, jops = pallas
+    tol = _TOL[dtype]
+    (x,), (tx,) = _inputs(1, [shape], dtype)
+    jx = jnp.asarray(x).astype(dtype)
+    scale = np.random.default_rng(2).uniform(0.5, 1.5, shape[-1]).astype(
+        np.float32)
+    want = jops.rmsnorm(jx, jnp.asarray(scale), 1e-5)
+    got = ops.rmsnorm(tx, torch.from_numpy(scale), 1e-5)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+def test_causal_needs_equal_lengths():
+    q = torch.zeros(1, 8, 2, 32)
+    kv = torch.zeros(1, 16, 2, 32)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        ops.flash_attention(q, kv, kv, causal=True)
+    # bidirectional attention takes Sq != Sk
+    assert ops.flash_attention(q, kv, kv, causal=False).shape == q.shape
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """The dispatch rule on the CPU: plain version, no launch counted."""
+    before = (ops.flash_attention.launches, ops.rmsnorm.launches)
+    x = torch.randn(4, 128, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(ops.rmsnorm(x, torch.ones(128)),
+                       ref.rmsnorm_ref(x, torch.ones(128)))
+    q = x.reshape(1, 4, 1, 128)
+    assert torch.equal(ops.flash_attention(q, q, q),
+                       ref.flash_attention_ref(q, q, q)[0])
+    assert (ops.flash_attention.launches, ops.rmsnorm.launches) == before
+
+
+# ------------------------------------------------------------ on the card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (1, 256, 16, 8, 128, True),
+    (2, 200, 4, 2, 64, True),      # ragged: S % 64 != 0
+    (1, 130, 4, 4, 32, False),
+])
+def test_flash_kernel_matches_plain_on_card(cuda, B, S, H, KV, hd, causal,
+                                            dtype):
+    from repro_torch.kernels import flash_attention as fa
+    tol = _TOL[dtype]
+    _, (q, k, v) = _inputs(3, [(B, S, H, hd), (B, S, KV, hd),
+                               (B, S, KV, hd)], dtype)
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(out), _np(want_out), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(lse), _np(want_lse), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(1, 2048), (37, 2048), (300, 128)])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, d, dtype):
+    from repro_torch.kernels import rmsnorm as rn
+    tol = _TOL[dtype]
+    _, (x,) = _inputs(4, [(rows, d)], dtype)
+    x = x.to(cuda)
+    scale = torch.linspace(0.5, 1.5, d, device=cuda)
+    got = rn.rmsnorm_fwd(x, scale)
+    want = ref.rmsnorm_ref(x, scale)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_launch_the_kernels(cuda):
+    before = (ops.flash_attention.launches, ops.rmsnorm.launches)
+    x = torch.randn(8, 128, device=cuda)
+    ops.rmsnorm(x, torch.ones(128, device=cuda))
+    q = x.reshape(1, 8, 1, 128)
+    ops.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches, ops.rmsnorm.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+# ------------------------------------------------------------- the build
+def test_build_names_the_library_by_its_sources(tmp_path, monkeypatch):
+    """An edited source gets a new library name, so a stale build is
+    never loaded."""
+    from repro_torch.kernels import _build
+    for name in _build.SOURCES:
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    assert before.parent == _build.BUILD_DIR
+    (tmp_path / _build.SOURCES[0]).write_text("// edited\n")
+    assert _build.library_path() != before
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)      # nothing built
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_kernel_launchers_refuse_cpu_tensors():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    x = torch.zeros(2, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rmsnorm_fwd(x, torch.ones(128))
+    q = torch.zeros(1, 4, 2, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_fwd(q, q, q)
