@@ -9,8 +9,9 @@ Phases, each of which exits non-zero on failure:
 2. build:   build the hand-written kernels from src/repro_torch/kernels/csrc
             with nvcc for sm_90a;
 3. kernels: hold each kernel against its plain PyTorch version on the card
-            (flash-attention forward: out and lse; RMSNorm) and time the
-            kernel, the plain version and one PyTorch library call;
+            (flash-attention forward: out and lse; flash-attention
+            backward: dq, dk, dv; RMSNorm) and time the kernel, the plain
+            version and one PyTorch library call;
 4. prefill: a full-width qwen3-1.7b prefill (B=1, S=2048, random weights
             from seed 0) through `launch.steps.make_prefill_step`, which must
             launch the flash kernel once per layer and the RMSNorm kernel
@@ -19,10 +20,22 @@ Phases, each of which exits non-zero on failure:
             32-token prompt), greedy, twice with one seed: identical
             streams, RMSNorm launches as predicted per step, and the
             gateway's logits at the last prompt position agree with the
-            prefill path's.
+            prefill path's;
+6. train:   `Session.train` at full width (4 steps, B=2, S=2048, AdamW):
+            28 flash forward, 28 flash backward and 113 RMSNorm launches per
+            step, finite losses and gradient norms, a first loss near
+            ln(vocab), every parameter changed by step 1; step time,
+            tokens/s, MFU, peak memory and the device's busy share;
+7. parity:  one `make_train_step` of qwen3-1.7b cut to 2 layers at full
+            width, on the card (kernels) and on the CPU (plain versions),
+            from one set of weights and one batch: loss, gradient norm and
+            every gradient leaf agree;
+7b. resume: checkpoint and resume on the card (SMOKE config): 2 steps, a
+            new Session that restores at step 2 and runs 2 more, against 4
+            uninterrupted steps.
 
-Then one JSON line per the kernels (launches from phases 4 and 5), the
-card line again, and the result line
+Then one JSON line per the kernels (launches from phases 4, 5 and 6, each
+counted from 0), the card line again, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the repository beside it, it fails
 before printing any result.
@@ -35,6 +48,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -44,12 +58,24 @@ SRC = ROOT / "src"
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # as tests/test_kernels.py
+# flash backward: fp32 as tests/test_kernels.py holds the Pallas gradients
+# (3e-4, elementwise); bf16 against the largest |gradient|, since p and ds
+# are rounded to bf16 for their products
+BWD_TOL = {"bfloat16": 2e-2, "float32": 3e-4}
+# train step on the card (bf16, kernels) vs the CPU (bf16, plain versions),
+# 2 layers at full width. Calibrated on the first chip run (PERF.md §6),
+# which gave 3.6e-5, 1.9e-4 and 1.2e-2: the scalars differ only by the
+# order of bf16 sums (about 30x margin); a gradient leaf also carries the
+# kernel's bf16 rounding of p and ds, largest on the small qk-norm scales
+# (4x margin)
+PARITY_TOL = {"loss": 1e-3, "grad_norm": 5e-3, "grad_leaf": 5e-2}
 # decode-vs-prefill logits, scale-relative: the two paths round in bf16 at
 # different places (bf16 KV cache and fp32 softmax over it vs the flash
 # kernel's bf16 output) across 28 layers
 SERVE_VS_PREFILL_TOL = 5e-2
 
 SEQ, N_TOKENS, N_BATCH, PROMPT_LEN = 2048, 16, 4, 32
+TRAIN_STEPS, TRAIN_BATCH = 4, 2
 
 
 def fail(msg: str) -> None:
@@ -110,7 +136,18 @@ def device_profile(torch, fn, n: int):
     return sum(by_name.values()), ranked
 
 
-def say_profile(what: str, wall_ms: float, device_ms: float, ranked) -> None:
+# kernel-name fragments -> the category a breakdown sums them under
+CATEGORIES = (("flash_fwd_", "flash forward (ours)"),
+              ("flash_bwd_", "flash backward (ours)"),
+              ("rmsnorm_kernel", "RMSNorm (ours)"),
+              ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"),
+              ("copy_kernel", "copies and dtype casts"),
+              ("reduce_kernel", "reductions"),
+              ("elementwise", "other elementwise"))
+
+
+def say_profile(what: str, wall_ms: float, device_ms: float, ranked,
+                top: int = 6, by_category: bool = False) -> None:
     if device_ms == 0.0:
         say(f"  {what}: device time not measured (the profiler saw no "
             "CUDA activity)")
@@ -118,17 +155,25 @@ def say_profile(what: str, wall_ms: float, device_ms: float, ranked) -> None:
     say(f"  {what}: device busy {device_ms:.3f} ms of {wall_ms:.3f} ms "
         f"wall ({100 * device_ms / wall_ms:.1f}% busy, "
         f"{100 - 100 * device_ms / wall_ms:.1f}% idle); top kernels:")
-    for name, ms in ranked[:6]:
+    for name, ms in ranked[:top]:
         say(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
+    if by_category:
+        sums = {}
+        for name, ms in ranked:
+            cat = next((c for frag, c in CATEGORIES if frag in name), "other")
+            sums[cat] = sums.get(cat, 0.0) + ms
+        say("    by category:")
+        for cat, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
+            say(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {cat}")
 
 
 def kernel_ms(ranked, needle: str) -> float:
     return sum(ms for name, ms in ranked if needle in name)
 
 
-def compare(torch, name, got, want, dtype) -> float:
+def compare(torch, name, got, want, dtype, tol=None) -> float:
     """max |got - want|; fails unless |got - want| <= tol + tol |want|."""
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     g, w = got.float(), want.float()
     if not bool(torch.isfinite(g).all()):
         fail(f"{name}: non-finite values")
@@ -142,6 +187,29 @@ def compare(torch, name, got, want, dtype) -> float:
     return max_err
 
 
+def compare_scaled(torch, name, got, want, tol) -> float:
+    """max |got - want|; fails unless it is <= tol * max |want|."""
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{name}: non-finite values")
+    max_err = float((g - w).abs().max())
+    limit = tol * float(w.abs().max())
+    say(f"  {name}: max_abs_err={max_err:.3e} <= {tol} * max|want| = "
+        f"{limit:.3e} {'ok' if max_err <= limit else 'OUT OF TOLERANCE'}")
+    if not max_err <= limit:
+        fail(f"{name} disagrees with its plain version")
+    return max_err
+
+
+def fingerprint(torch, tree, flatten):
+    """Per-leaf (sum, sum of squares) in fp64: cheap evidence of change."""
+    out = {}
+    for path, t in flatten(tree):
+        t64 = t.detach().double()
+        out[path] = (float(t64.sum()), float((t64 * t64).sum()))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -153,13 +221,17 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.api import Session
-    from repro_torch.configs import get_config
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticTokenSource
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import steps as st
     from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import api as model_api
+    from repro_torch.optim import global_norm
     from repro_torch.serving.engine import GatewayEngine
-    from repro_torch.tree import flatten
+    from repro_torch.tree import flatten, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -172,21 +244,21 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
-    say(f"[1/5] card: {card}")
+    say(f"[1/7] card: {card}")
     say(f"      torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count={torch.cuda.device_count()}")
 
     # --------------------------------------------------------- 2. build
     t0 = time.monotonic()
     _build.library()
-    say(f"[2/5] build: {_build.library_path().name} in "
+    say(f"[2/7] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
     for line in _build.last_build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             say(f"      {line.strip()}")
 
     # ------------------------------------------------ 3. kernels vs plain
-    say("[3/5] kernels vs plain versions")
+    say("[3/7] kernels vs plain versions")
     cfg = get_config("qwen3-1.7b", smoke=False)
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     report = {}
@@ -245,6 +317,74 @@ def main() -> int:
         f"({flops / 1e9:.2f} GFLOP / 989 TFLOP/s; {nbytes / 1e6:.1f} MB); "
         f"kernel at {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
 
+    bwd_errs = []
+    for (B, Sq, Sk, h, kv, hdim, causal, dtype) in [
+            (TRAIN_BATCH, SEQ, SEQ, H, KV, hd, True, "bfloat16"),  # train
+            (2, 200, 200, H, KV, hd, True, "bfloat16"),      # ragged GQA
+            (2, 192, 320, 4, 2, 64, False, "float32"),       # bidirectional
+            (1, 100, 100, 4, 1, 32, True, "float32")]:       # MQA
+        dt = getattr(torch, dtype)
+        q = randn((B, Sq, h, hdim), dt, 1)
+        k = randn((B, Sk, kv, hdim), dt, 2)
+        v = randn((B, Sk, kv, hdim), dt, 3)
+        do = randn((B, Sq, h, hdim), dt, 5)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        tag = f"flash bwd B={B} Sq={Sq} Sk={Sk} H={h} KV={kv} hd={hdim} " \
+              f"causal={causal} {dtype}"
+        for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+            if dtype == "bfloat16":
+                bwd_errs.append(compare_scaled(torch, f"{tag} {name}", g_,
+                                               w_, BWD_TOL[dtype]))
+            else:
+                bwd_errs.append(compare(torch, f"{tag} {name}", g_, w_,
+                                        dtype, tol=BWD_TOL[dtype]))
+        del q, k, v, do, out, lse, got, want
+
+    B = TRAIN_BATCH
+    q = randn((B, SEQ, H, hd), torch.bfloat16, 1)
+    k = randn((B, SEQ, KV, hd), torch.bfloat16, 2)
+    v = randn((B, SEQ, KV, hd), torch.bfloat16, 3)
+    do = randn((B, SEQ, H, hd), torch.bfloat16, 5)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ms = time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                      causal=True))
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, True), warmup=2, iters=10)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+    pairs = SEQ * (SEQ + 1) // 2
+    flops = 10.0 * hd * pairs * H * B          # the five products
+    nbytes = (2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+              + 4 * lse.numel())               # q,out,do,dq; k,dk; v,dv; lse
+    bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+    report["flash_attention_bwd"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:223",
+        max_abs_err=max(bwd_errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound * 1e3,
+        bound_by=("operations" if flops / PEAK_FLOPS["bfloat16"]
+                  >= nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=lib_ms)
+    _, ranked = device_profile(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=True), 5)
+    say(f"  flash_attention_bwd @ B={B} S={SEQ} H={H} KV={KV} hd={hd} causal "
+        f"bf16: kernel {ms:.4f} ms per call (dq "
+        f"{kernel_ms(ranked, 'flash_bwd_dq_'):.4f} + dk/dv "
+        f"{kernel_ms(ranked, 'flash_bwd_dkv_'):.4f} ms on the device), "
+        f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
+        f"{bound * 1e3:.4f} ms ({flops / 1e9:.2f} GFLOP / 989 TFLOP/s; "
+        f"{nbytes / 1e6:.1f} MB; the two passes execute 1.4x the FLOP); "
+        f"kernel at {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    del q, k, v, do, out, lse, qt, kt, vt, sdpa_out, dot
+
     rn_errs = []
     scale_main = torch.linspace(0.5, 1.5, d, device=dev)
     for rows, dim, dtype in [(SEQ, d, "bfloat16"), (N_BATCH, d, "bfloat16"),
@@ -284,7 +424,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------ 4. prefill, full width
-    say(f"[4/5] prefill: {cfg.name} full width (L={cfg.n_layers} d={d} "
+    say(f"[4/7] prefill: {cfg.name} full width (L={cfg.n_layers} d={d} "
         f"H={H}/KV={KV} hd={hd} V={cfg.vocab_size}), B=1 S={SEQ}, "
         f"{cfg.dtype}")
     session = Session.from_arch("qwen3-1.7b", smoke=False)
@@ -306,12 +446,11 @@ def main() -> int:
     logits = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     first_ms = (time.monotonic() - t0) * 1e3
-    launches = {"flash_attention_fwd": ops.flash_attention.launches,
-                "rmsnorm_fwd": ops.rmsnorm.launches}
+    launches = dict(ops.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_norms = 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm else 0)
     want_launches = {"flash_attention_fwd": cfg.n_layers,
-                     "rmsnorm_fwd": n_norms}
+                     "flash_attention_bwd": 0, "rmsnorm_fwd": n_norms}
     say(f"  launches {launches} (predicted {want_launches})")
     if launches != want_launches:
         fail("prefill did not launch the kernels as predicted")
@@ -335,15 +474,14 @@ def main() -> int:
 
     # -------------------------------------------------- 5. serve, full width
     steps = PROMPT_LEN + N_TOKENS - 1
-    say(f"[5/5] serve: Session.serve(tokens={N_TOKENS}, batch={N_BATCH}, "
+    say(f"[5/7] serve: Session.serve(tokens={N_TOKENS}, batch={N_BATCH}, "
         f"prompt_len={PROMPT_LEN}), greedy, twice; {steps} steps each")
     ops.reset_launches()
     reps = [session.serve(tokens=N_TOKENS, batch=N_BATCH,
                           prompt_len=PROMPT_LEN, seed=1) for _ in range(2)]
     torch.cuda.synchronize()
-    serve_launches = {"flash_attention_fwd": ops.flash_attention.launches,
-                      "rmsnorm_fwd": ops.rmsnorm.launches}
-    want_serve = {"flash_attention_fwd": 0,
+    serve_launches = dict(ops.launches)
+    want_serve = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
                   "rmsnorm_fwd": 2 * steps * n_norms}
     say(f"  launches {serve_launches} (predicted {want_serve}: "
         f"{n_norms} RMSNorm launches per decode step)")
@@ -381,15 +519,186 @@ def main() -> int:
     say_profile("one gateway decode step (4 slots)",
                 reps[1].decode_ms_p50, *device_profile(torch, eng.step, 4))
 
+    del session, params, eng, served, pre, reps
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------- 6. train, full width
+    tokens_per_step = TRAIN_BATCH * SEQ
+    pairs = SEQ * (SEQ + 1) // 2
+    # 6 N per token for the weights, 14 hd per causal pair and head for
+    # the attention products (4 forward, 10 backward)
+    step_flops = (6.0 * cfg.param_count() * tokens_per_step
+                  + 14.0 * hd * pairs * H * TRAIN_BATCH * cfg.n_layers)
+    say(f"[6/7] train: Session.train({TRAIN_STEPS} steps, global_batch="
+        f"{TRAIN_BATCH}, seq_len={SEQ}), AdamW, full width; "
+        f"{step_flops / 1e12:.2f} TFLOP per step")
+    tsess = Session.from_arch("qwen3-1.7b", smoke=False, checkpoint_interval=0)
+    # the trainer draws its weights as `model_api.init` does, from a
+    # generator seeded with 0 on the card: two draws must agree for the
+    # "changed by step 1" check below to mean anything
+    before = fingerprint(torch, model_api.init(cfg, device=dev)[0], flatten)
+    if fingerprint(torch, model_api.init(cfg, device=dev)[0],
+                   flatten) != before:
+        fail("two seeded draws of the weights differ")
+    torch.cuda.empty_cache()
+    after_step1 = {}
+
+    def on_step(kind, payload):
+        if payload["step"] == 0:
+            after_step1.update(fingerprint(
+                torch, tsess.trainer.state.params, flatten))
+    tsess.bus.subscribe("step", on_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as ckdir:
+        rep = tsess.train(TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=SEQ,
+                          members=1, checkpoint_dir=ckdir)
+    torch.cuda.synchronize()
+    train_launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {"flash_attention_fwd": cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers, "rmsnorm_fwd": n_norms}
+    want_train = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+    say(f"  launches {train_launches} (predicted {want_train}: {per_step} "
+        f"per step)")
+    if train_launches != want_train:
+        fail("the train steps did not launch the kernels as predicted")
+    say(f"  losses {rep.losses}; grad norms {rep.grad_norms}")
+    if not all(math.isfinite(x) for x in rep.losses + rep.grad_norms):
+        fail("a loss or gradient norm is not finite")
+    ln_v = math.log(cfg.vocab_size)
+    if abs(rep.losses[0] - ln_v) > 1.5:
+        fail(f"first loss {rep.losses[0]:.3f} is not within 1.5 of "
+             f"ln({cfg.vocab_size}) = {ln_v:.3f}")
+    unchanged = [p for p in before if before[p] == after_step1[p]]
+    say(f"  {len(before) - len(unchanged)} of {len(before)} parameter leaves "
+        "changed by step 1")
+    if unchanged or len(after_step1) != len(before):
+        fail(f"parameter leaves unchanged by step 1: {unchanged}")
+    times = [r.t for r in tsess.trainer.profiler.records]
+    step_s = statistics.median(b - a for a, b in zip(times, times[1:]))
+    mfu = step_flops / step_s / PEAK_FLOPS["bfloat16"]
+    say(f"  step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
+        f"{tokens_per_step / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% "
+        f"of 989 TFLOP/s, peak memory {peak_gb:.2f} GB, first loss "
+        f"{rep.losses[0]:.4f} (ln V = {ln_v:.4f})")
+    trainer = tsess.trainer
+    loader = ShardedLoader(SyntheticTokenSource(cfg.vocab_size, SEQ, seed=1),
+                           TRAIN_BATCH)
+    batch = {k_: torch.from_numpy(v_).to(dev)
+             for k_, v_ in loader.next_global(1).items()}
+    say_profile("one train step", step_s * 1e3, *device_profile(
+        torch, lambda: trainer.train_step(trainer.state, batch), 1),
+                top=12, by_category=True)
+    state = trainer.state
+    zeros = tree_map(torch.zeros_like, state.params)
+    opt_ms = time_ms(torch, lambda: trainer.opt.update(
+        zeros, state.opt, state.params, state.step), warmup=1, iters=3)
+    say(f"  AdamW update alone (1.72 B fp32 params, CUDA events): "
+        f"{opt_ms:.2f} ms, {100 * opt_ms / (step_s * 1e3):.1f}% of the step")
+    del tsess, trainer, rep, batch, state, zeros
+    torch.cuda.empty_cache()
+
+    # -------------------------- 7. train step: kernels vs plain versions
+    pcfg = cfg.with_(n_layers=2)
+    P_SEQ = 256
+    say(f"[7/7] parity: make_train_step on {cfg.name} cut to "
+        f"{pcfg.n_layers} layers at full width, B=1 S={P_SEQ} bf16, on the "
+        "card (kernels) and on the CPU (plain versions)")
+    cpu_gen = torch.Generator().manual_seed(3)
+    cpu_params, _ = model_api.init(pcfg, cpu_gen, device="cpu")
+    loader = ShardedLoader(SyntheticTokenSource(pcfg.vocab_size, P_SEQ,
+                                                seed=2), 1)
+    np_batch = loader.next_global(1)
+    results = {}
+    for where in ("cuda", "cpu"):
+        device = dev if where == "cuda" else torch.device("cpu")
+        params = tree_map(lambda t: t.to(device, copy=True), cpu_params)
+        batch = {k_: torch.from_numpy(v_).to(device)
+                 for k_, v_ in np_batch.items()}
+        t0 = time.monotonic()
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        model_api.loss_fn(live, pcfg, batch).backward()
+        grads = {p_: t.grad.float().cpu() for p_, t in flatten(live)}
+        del live
+        run = RunConfig()
+        train_step, opt = st.make_train_step(pcfg, run)
+        state = st.TrainState(params, opt.init(params),
+                              torch.zeros((), dtype=torch.int32))
+        start = fingerprint(torch, params, flatten)
+        ops.reset_launches()
+        state, metrics = train_step(state, batch)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            step_launches = dict(ops.launches)
+        changed = fingerprint(torch, state.params, flatten)
+        results[where] = dict(loss=float(metrics["loss"]),
+                              grad_norm=float(metrics["grad_norm"]),
+                              grads=grads, seconds=time.monotonic() - t0,
+                              unchanged=[p_ for p_ in start
+                                         if start[p_] == changed[p_]])
+        del params, state, batch, train_step, opt
+    torch.cuda.empty_cache()
+    gpu, cpu = results["cuda"], results["cpu"]
+    want_step = {"flash_attention_fwd": pcfg.n_layers,
+                 "flash_attention_bwd": pcfg.n_layers,
+                 "rmsnorm_fwd": 4 * pcfg.n_layers + 1}
+    say(f"  card train step launches {step_launches} (predicted "
+        f"{want_step}); gradient pass + step: card {gpu['seconds']:.1f}s, "
+        f"CPU {cpu['seconds']:.1f}s")
+    if step_launches != want_step:
+        fail("the card's train step did not launch the kernels as predicted")
+    if gpu["unchanged"]:
+        fail(f"leaves unchanged by the card's step: {gpu['unchanged']}")
+    rel = {k_: abs(gpu[k_] - cpu[k_]) / abs(cpu[k_])
+           for k_ in ("loss", "grad_norm")}
+    worst = max(((p_, float((gpu["grads"][p_] - g).abs().max())
+                  / float(g.abs().max())) for p_, g in cpu["grads"].items()),
+                key=lambda kv: kv[1])
+    say(f"  loss card {gpu['loss']:.6f} CPU {cpu['loss']:.6f} (rel "
+        f"{rel['loss']:.3e}, tol {PARITY_TOL['loss']}); grad norm card "
+        f"{gpu['grad_norm']:.6f} CPU {cpu['grad_norm']:.6f} (rel "
+        f"{rel['grad_norm']:.3e}, tol {PARITY_TOL['grad_norm']}); worst "
+        f"gradient leaf {worst[0]}: max|diff|/max|leaf| {worst[1]:.3e} "
+        f"(tol {PARITY_TOL['grad_leaf']})")
+    if (rel["loss"] > PARITY_TOL["loss"]
+            or rel["grad_norm"] > PARITY_TOL["grad_norm"]
+            or not worst[1] <= PARITY_TOL["grad_leaf"]):
+        fail("the card's train step disagrees with the plain path")
+    del results, gpu, cpu, cpu_params
+
+    # --------------------------------------- 7b. checkpoint and resume
+    say("[7b/7] resume: SMOKE config, checkpoint_interval=2; 4 steps straight "
+        "vs 2 steps + a new Session restoring at step 2 for 2 more")
+    kw = dict(global_batch=4, seq_len=128)
+    with tempfile.TemporaryDirectory() as dir_a, \
+            tempfile.TemporaryDirectory() as dir_b:
+        run_a = Session.from_arch("qwen3-1.7b", checkpoint_interval=2).train(
+            4, checkpoint_dir=dir_a, **kw)
+        Session.from_arch("qwen3-1.7b", checkpoint_interval=2).train(
+            2, checkpoint_dir=dir_b, **kw)
+        resumed = Session.from_arch("qwen3-1.7b", checkpoint_interval=2)
+        run_b = resumed.train(2, checkpoint_dir=dir_b, **kw)
+    restored = [e.payload["step"] for e in resumed.bus.of_kind("restore")]
+    ran = [e.payload["step"] for e in resumed.bus.of_kind("step")]
+    rel = [abs(b - a) / abs(a) for a, b in zip(run_a.losses[2:], run_b.losses)]
+    say(f"  restore events {restored}, resumed steps {ran}; losses straight "
+        f"{run_a.losses[2:]} vs resumed {run_b.losses} (rel {rel})")
+    if restored != [2] or ran != [2, 3] or max(rel) > 1e-5:
+        fail("the resumed run does not continue the uninterrupted one")
+
     # ------------------------------------------------------------ result
+    main_path = {name: launches[name] + serve_launches[name]
+                 + train_launches[name] for name in report}
     kernels = []
     for name, row in report.items():
-        n = launches[name] + serve_launches[name]
-        if n == 0:
+        if main_path[name] == 0:
             fail(f"{name} never launched on the main path")
         kernels.append({"name": name, "route": row["route"],
                         "source": row["source"], "replaces": row["replaces"],
-                        "launches": n, "max_abs_err": row["max_abs_err"],
+                        "launches": main_path[name],
+                        "max_abs_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
@@ -400,7 +709,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

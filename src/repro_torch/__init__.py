@@ -5,11 +5,14 @@ It mirrors `src/repro/` module for module (same module and function
 names, so each file has a twin in the JAX package to be held against) and
 imports nothing of it. Its entry points run on the card unless the caller
 passes ``device="cpu"``; with no CUDA device and no explicit CPU request
-they raise. On the card, every prefill attention and every RMSNorm goes
-through a hand-written kernel (`repro_torch.kernels`); the plain PyTorch
-versions serve CPU tensors and the tests.
+they raise. On the card, every attention (forward and, in training,
+backward) and every RMSNorm goes through a hand-written kernel
+(`repro_torch.kernels`); the plain PyTorch versions serve CPU tensors and
+the tests.
 
-This slice ports dense-decoder inference: batched prefill
+Ported so far, for the dense family: inference — batched prefill
 (`launch.steps.make_prefill_step`) and the continuous-batching gateway
-(`api.Session.serve`, ``python -m repro_torch serve``).
+(`api.Session.serve`, ``python -m repro_torch serve``) — and training —
+`api.Session.train` over `core.trainer.TransientTrainer` and
+`launch.steps.make_train_step` (``python -m repro_torch train``).
 """

@@ -2,6 +2,7 @@
 
     from repro_torch.api import Session
     s = Session.from_arch("qwen3-1.7b", smoke=False)
+    s.train(steps=4, global_batch=2, seq_len=2048)
     s.serve(tokens=16)
 """
 from repro_torch.api.events import Event, EventBus  # noqa: F401

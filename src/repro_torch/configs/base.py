@@ -5,8 +5,11 @@ the JAX package).
 Dropped from the reference: `use_pallas` and `unroll_layers`, which steer
 XLA tracing. The port takes its hand-written kernels whenever a tensor
 lies on the card (`repro_torch.kernels.ops`), and its layer loop is
-plain Python. Shape, mesh and run configs come with the slices that use
-them.
+plain Python. `RunConfig` is the reference's, field for field; its
+`compilation_cache_dir` is accepted and ignored (nothing is jitted), and
+`resilience`/`recalibration` other than None are refused by the trainer
+until those layers are ported. Shape and mesh configs come with the
+slices that use them.
 """
 from __future__ import annotations
 
@@ -177,3 +180,24 @@ class ModelConfig:
         per_expert = self._mlp_params(self.moe.expert_d_ff)
         inactive = moe_layers * (self.moe.n_experts - self.moe.top_k) * per_expert
         return total - inactive
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Training-run hyperparameters (used by the launcher/examples)."""
+    optimizer: str = "adamw"
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    checkpoint_interval: int = 500        # steps (paper: I_c)
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    zero1: bool = True                    # no-op on one card
+    master_weights: bool = False          # bf16 live params + fp32 master in opt
+    grad_compression: str = "none"        # none | bf16 | int8 | topk
+    seed: int = 0
+    microbatch: int = 0                   # 0 => no gradient accumulation
+    compilation_cache_dir: str = ""       # accepted, ignored: nothing to jit
+    resilience: Optional[object] = None   # not ported: must stay None
+    recalibration: Optional[object] = None  # not ported: must stay None

@@ -22,7 +22,7 @@ from typing import List, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_attention_fwd.cu", "rmsnorm.cu")
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "rmsnorm.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v"]
@@ -47,9 +47,9 @@ def nvcc_path() -> str:
 
 def source_digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(COMPILE_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -108,6 +108,10 @@ def library() -> ctypes.CDLL:
             [ptr] * 5 + [i32] * 7 + [i64] * 9
             + [ctypes.c_float, i32, ptr])
         lib.repro_flash_attention_fwd.restype = i32
+        lib.repro_flash_attention_bwd.argtypes = (
+            [ptr] * 9 + [i32] * 7 + [i64] * 12
+            + [ctypes.c_float, i32, ptr])
+        lib.repro_flash_attention_bwd.restype = i32
         lib.repro_rmsnorm_fwd.argtypes = [ptr, ptr, ptr, i64, i32,
                                           ctypes.c_float, i32, ptr]
         lib.repro_rmsnorm_fwd.restype = i32

@@ -1,12 +1,15 @@
-"""Launcher of the hand-written flash-attention forward kernel
-(``csrc/flash_attention_fwd.cu``), the twin of the JAX package's Pallas
-`kernels/flash_attention.py:flash_attention_fwd`.
+"""Launchers of the hand-written flash-attention kernels, the twins of the
+JAX package's Pallas `kernels/flash_attention.py`: `flash_attention_fwd`
+(``csrc/flash_attention_fwd.cu``) and `flash_attention_bwd`
+(``csrc/flash_attention_bwd.cu``).
 
-It takes the reference's layout, q ``(B,Sq,H,hd)`` and k, v
+They take the reference's layout, q ``(B,Sq,H,hd)`` and k, v
 ``(B,Sk,KV,hd)``, with any batch/sequence/head strides (the head_dim must
-be contiguous), and returns ``out`` ``(B,Sq,H,hd)`` in the input dtype
-plus the fp32 logsumexp ``(B,H,Sq)``. Unlike the Pallas kernel it takes
-ragged lengths (no ``S % block == 0``).
+be contiguous). The forward returns ``out`` ``(B,Sq,H,hd)`` in the input
+dtype plus the fp32 logsumexp ``(B,H,Sq)``; the backward takes those and
+``dO`` and returns ``(dq, dk, dv)``, dk and dv summed over each GQA group.
+Unlike the Pallas kernels they take ragged lengths (no
+``S % block == 0``).
 """
 from __future__ import annotations
 
@@ -42,29 +45,40 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Sq={Sq}, Sk={k.shape[1]}")
 
 
+def _check_launch(what: str, q: torch.Tensor,
+                  *others: torch.Tensor) -> None:
+    """Device, dtype and layout rules of both kernels; raises on what they
+    do not take (there is no fallback)."""
+    if not (q.is_cuda and all(t.device == q.device for t in others)):
+        raise ValueError(f"{what} launches a CUDA kernel: its tensors must "
+                         "lie on one CUDA device")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in others):
+        raise TypeError(f"{what} takes fp32 or bf16 tensors of one dtype, "
+                        f"got {[str(t.dtype) for t in (q, *others)]}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[3]} not in {HEAD_DIMS}")
+    if any(t.stride(3) != 1 for t in (q, *others)):
+        raise ValueError(f"{what} needs a contiguous head_dim")
+    if q.dtype == torch.bfloat16 and (
+            any(t.stride(i) % 8 for t in (q, *others) for i in range(3))
+            or any(t.data_ptr() % 16 for t in (q, *others))):
+        # the bf16 kernels move rows as 16-byte vectors
+        raise ValueError(f"bf16 {what} needs strides that are multiples of "
+                         "8 and 16-byte aligned tensors")
+
+
+def _strides(*ts: torch.Tensor):
+    return [t.stride(i) for t in ts for i in range(3)]
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the card. Returns (out, lse)."""
+    """Launch the forward kernel on the card. Returns (out, lse)."""
     check_shapes(q, k, v, causal)
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_fwd launches a CUDA kernel: q, k "
-                         "and v must lie on one CUDA device")
-    if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash_attention_fwd takes fp32 or bf16 q/k/v of "
-                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _check_launch("flash_attention_fwd", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("flash_attention_fwd needs a contiguous head_dim")
-    if q.dtype == torch.bfloat16 and (
-            any(t.stride(i) % 8 for t in (q, k, v) for i in range(3))
-            or any(t.data_ptr() % 16 for t in (q, k, v))):
-        # the bf16 kernel moves rows as 16-byte vectors
-        raise ValueError("bf16 flash_attention_fwd needs strides that are "
-                         "multiples of 8 and 16-byte aligned q, k, v")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -74,9 +88,45 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _DTYPE_CODE[q.dtype], B, Sq, Sk, H, KV, hd,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            float(scale), int(bool(causal)), stream)
+            *_strides(q, k, v), float(scale), int(bool(causal)), stream)
     _build.check(err, "flash_attention_fwd")
     return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels (dq, then dk/dv) on the card.
+
+    ``out`` and ``lse`` are the forward's; ``do`` is the gradient of
+    ``out``, any strides with a contiguous head_dim. ``delta =
+    rowsum(do * out)`` is a plain reduction here, as XLA computed it in the
+    reference. Returns (dq, dk, dv) in the input dtype."""
+    check_shapes(q, k, v, causal)
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and do {tuple(do.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    _check_launch("flash_attention_bwd", q, k, v, do)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous fp32 ({B}, {H}, {Sq}) "
+                         "tensor on q's device")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, KV, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Sk, KV, hd), dtype=v.dtype, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _DTYPE_CODE[q.dtype], B, Sq, Sk, H, KV, hd,
+            *_strides(q, k, v, do), float(scale), int(bool(causal)), stream)
+    _build.check(err, "flash_attention_bwd")
+    return dq, dk, dv

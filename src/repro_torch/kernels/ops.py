@@ -1,23 +1,74 @@
 """Device dispatch for the ported kernels — the twin of the JAX package's
-`kernels/ops.py` (forward parts).
+`kernels/ops.py`.
 
 The rule: a tensor on the CPU takes the plain PyTorch version
-(`kernels.ref`); a tensor on the card launches the hand-written kernel or
-raises. There is no fallback from the card to the plain version and no
-flag that turns a kernel off.
+(`kernels.ref`), which autograd differentiates; a tensor on the card
+launches the hand-written kernel or raises. There is no fallback from the
+card to the plain version and no flag that turns a kernel off.
 
-Each wrapper keeps a plain-int ``launches`` count, incremented only where
-it launched its kernel, so a run can show that its path went through the
-kernels (``chip_smoke.py`` zeroes the counts before the main path and
-reads them after).
+On the card, where a gradient is wanted, each op is a
+`torch.autograd.Function` (the twin of the reference's `jax.custom_vjp`):
+
+* flash attention: the forward kernel, whose (q, k, v, out, lse) are
+  saved, and the backward kernel (``csrc/flash_attention_bwd.cu``);
+* RMSNorm: the forward kernel, and a backward by recompute — autograd
+  over `ref.rmsnorm_ref`, as the reference's `_rn_bwd` takes `jax.vjp` of
+  its oracle (it has no Pallas backward).
+
+Without a gradient (``torch.no_grad()``: prefill, serving) the kernels
+are called directly and nothing is saved.
+
+``launches`` counts each kernel's launches, keyed by kernel name, and is
+incremented only where a kernel was launched, so a run can show that its
+path went through the kernels (``chip_smoke.py`` zeroes the counts with
+`reset_launches` before the main path and reads them after).
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
+
+launches: Dict[str, int] = {"flash_attention_fwd": 0,
+                            "flash_attention_bwd": 0, "rmsnorm_fwd": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _flash_fwd(q, k, v, causal):
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    launches["flash_attention_fwd"] += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        # dO may arrive with the strides of the reshape before `wo`
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse,
+                                            do.contiguous(),
+                                            causal=ctx.causal)
+        launches["flash_attention_bwd"] += 1
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -27,12 +78,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fa.check_shapes(q, k, v, causal)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal)[0]
-    out, _ = fa.flash_attention_fwd(q, k, v, causal=causal)
-    flash_attention.launches += 1
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _flash_fwd(q, k, v, causal)[0]
+
+
+def _rmsnorm_fwd(x, scale, eps):
+    out = rn.rmsnorm_fwd(x, scale, eps)
+    launches["rmsnorm_fwd"] += 1
     return out
 
 
-flash_attention.launches = 0
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            sr = scale.detach().requires_grad_(ctx.needs_input_grad[1])
+            y = ref.rmsnorm_ref(xr, sr, ctx.eps)
+            wrt = [t for t in (xr, sr) if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, dy))
+        return (next(grads) if xr.requires_grad else None,
+                next(grads) if sr.requires_grad else None, None)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -40,14 +114,6 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     """x:(..., d), scale:(d,) -> x's shape and dtype."""
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
-    out = rn.rmsnorm_fwd(x, scale, eps)
-    rmsnorm.launches += 1
-    return out
-
-
-rmsnorm.launches = 0
-
-
-def reset_launches() -> None:
-    flash_attention.launches = 0
-    rmsnorm.launches = 0
+    if _wants_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rmsnorm_fwd(x, scale, eps)

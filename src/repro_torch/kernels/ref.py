@@ -40,6 +40,42 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.reshape(B, H, Sq))
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True,
+                            scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradients of `flash_attention_ref`'s ``out`` given ``do``, as
+    the reference's `_bwd_dq_kernel`/`_bwd_dkv_kernel` compute them, in
+    fp32: ``p = exp(s - lse)`` (masked scores at -1e30),
+    ``delta = rowsum(do * out)``, ``ds = p (dp - delta) scale``, and
+    dk/dv summed over each GQA group. Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, KV, G, hd).float()
+    dog = do.reshape(B, Sq, KV, G, hd).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
+    if causal:
+        mask = torch.ones((Sq, Sk), dtype=torch.bool,
+                          device=q.device).tril(Sk - Sq)
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None])
+    delta = (do.float() * out.float()).sum(-1)            # (B,Sq,H)
+    delta = delta.reshape(B, Sq, KV, G).permute(0, 2, 3, 1)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf).reshape(B, Sq, H, hd)
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     """Row mean-square in fp32, ``x * rsqrt(var + eps) * scale``, cast

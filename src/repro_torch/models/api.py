@@ -48,6 +48,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(logz - gold)
 
 
+def loss_fn(params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy plus the aux loss (zero for the dense
+    family)."""
+    logits, aux = _module(cfg).forward(params, cfg, batch["tokens"])
+    return cross_entropy(logits, batch["labels"]) + aux
+
+
 def forward(params, cfg: ModelConfig, *args, **kw):
     return _module(cfg).forward(params, cfg, *args, **kw)
 

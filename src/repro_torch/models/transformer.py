@@ -9,14 +9,14 @@ the reference's shapes, scales and fp32 storage; the numbers differ from
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -50,8 +50,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def _layer(stacked, i: int):
-    return tree_map(lambda v: v[i], stacked)
+def _layers(stacked) -> List[Dict[str, Any]]:
+    """The per-layer trees of a stacked tree, as views. `unbind` gives all
+    layers at once, so autograd stacks their gradients in one copy (an
+    index per layer would add a zero-filled stacked gradient per layer)."""
+    parts = tree_map(lambda v: v.unbind(0), stacked)
+    n = len(next(flatten(parts))[1])
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
 def _layer_apply(lp, cfg: ModelConfig, x, positions, cache=None,
@@ -76,12 +81,16 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None):
     """tokens: (B,S) integer. positions: (B,S). Returns logits (B,S,V)
     and the aux loss (zero for the dense family)."""
+    if cfg.remat != "none":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} (activation checkpointing) is not ported "
+            "yet (ROADMAP.md, queue 1 item 5)")
     x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
     B, S = x.shape[:2]
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    for i in range(params["layers"]["ln1"]["scale"].shape[0]):
-        x, _ = _layer_apply(_layer(params["layers"], i), cfg, x, positions)
+    for lp in _layers(params["layers"]):
+        x, _ = _layer_apply(lp, cfg, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, cfg, x), aux
 
@@ -115,8 +124,6 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                          device=x.device)
     else:
         pos = index.long()[:, None]
-    layers = cache["layers"]
-    for i in range(layers["k"].shape[0]):
-        x, _ = _layer_apply(_layer(params["layers"], i), cfg, x, pos,
-                            cache=_layer(layers, i), cache_index=index)
+    for lp, lc in zip(_layers(params["layers"]), _layers(cache["layers"])):
+        x, _ = _layer_apply(lp, cfg, x, pos, cache=lc, cache_index=index)
     return _head(params, cfg, x)[:, 0], cache

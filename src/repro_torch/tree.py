@@ -10,11 +10,14 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator, Tuple
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """Apply ``fn`` to every leaf; the dict structure is kept."""
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf (to the matching leaves of ``rest``,
+    trees of the same structure, as further arguments); the dict
+    structure is kept."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:

@@ -92,14 +92,14 @@ def test_causal_needs_equal_lengths():
 
 def test_cpu_tensors_take_the_plain_version():
     """The dispatch rule on the CPU: plain version, no launch counted."""
-    before = (ops.flash_attention.launches, ops.rmsnorm.launches)
+    before = dict(ops.launches)
     x = torch.randn(4, 128, generator=torch.Generator().manual_seed(0))
     assert torch.equal(ops.rmsnorm(x, torch.ones(128)),
                        ref.rmsnorm_ref(x, torch.ones(128)))
     q = x.reshape(1, 4, 1, 128)
     assert torch.equal(ops.flash_attention(q, q, q),
                        ref.flash_attention_ref(q, q, q)[0])
-    assert (ops.flash_attention.launches, ops.rmsnorm.launches) == before
+    assert ops.launches == before
 
 
 # ------------------------------------------------------------ on the card
@@ -148,14 +148,16 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, d, dtype):
 
 @pytest.mark.cuda
 def test_cuda_tensors_launch_the_kernels(cuda):
-    before = (ops.flash_attention.launches, ops.rmsnorm.launches)
+    before = dict(ops.launches)
     x = torch.randn(8, 128, device=cuda)
     ops.rmsnorm(x, torch.ones(128, device=cuda))
     q = x.reshape(1, 8, 1, 128)
     ops.flash_attention(q, q, q)
     torch.cuda.synchronize()
-    assert (ops.flash_attention.launches, ops.rmsnorm.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert ops.launches == {**before,
+                            "flash_attention_fwd":
+                                before["flash_attention_fwd"] + 1,
+                            "rmsnorm_fwd": before["rmsnorm_fwd"] + 1}
 
 
 # ------------------------------------------------------------- the build
