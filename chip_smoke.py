@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on failure:
 3. kernels: hold each kernel against its plain PyTorch version on the card
             (flash-attention forward: out and lse; flash-attention
             backward: dq, dk, dv; RMSNorm) and time the kernel, the plain
-            version and one PyTorch library call;
+            version and one PyTorch library call; the host cost of
+            RMSNorm's dispatch through its autograd Function;
 4. prefill: a full-width qwen3-1.7b prefill (B=1, S=2048, random weights
             from seed 0) through `launch.steps.make_prefill_step`, which must
             launch the flash kernel once per layer and the RMSNorm kernel
@@ -59,9 +60,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # as tests/test_kernels.py
 # flash backward: fp32 as tests/test_kernels.py holds the Pallas gradients
-# (3e-4, elementwise); bf16 against the largest |gradient|, since p and ds
-# are rounded to bf16 for their products
+# (3e-4, elementwise). bf16, where p and ds are rounded to bf16 for their
+# products: max |got - want| against the largest |gradient|, and
+# |got - want| / |want| over the whole tensor (Frobenius), which holds the
+# many small gradients past the first tiles that the first cannot (causal
+# gradients are heavy-tailed: on an H100 at the train shape max |dv| was
+# 7.25 and its median 0.031). The norm error measured there was 2.5e-3 to
+# 2.7e-3 for each of dq, dk, dv at both bf16 shapes: about 3.7x margin
 BWD_TOL = {"bfloat16": 2e-2, "float32": 3e-4}
+BWD_NORM_TOL = 1e-2
 # train step on the card (bf16, kernels) vs the CPU (bf16, plain versions),
 # 2 layers at full width. Calibrated on the first chip run (PERF.md §6),
 # which gave 3.6e-5, 1.9e-4 and 1.2e-2: the scalars differ only by the
@@ -187,16 +194,21 @@ def compare(torch, name, got, want, dtype, tol=None) -> float:
     return max_err
 
 
-def compare_scaled(torch, name, got, want, tol) -> float:
-    """max |got - want|; fails unless it is <= tol * max |want|."""
+def compare_scaled(torch, name, got, want, tol, norm_tol) -> float:
+    """max |got - want|; fails unless it is <= tol * max |want| and
+    |got - want| / |want| (Frobenius) <= norm_tol."""
     g, w = got.float(), want.float()
     if not bool(torch.isfinite(g).all()):
         fail(f"{name}: non-finite values")
     max_err = float((g - w).abs().max())
     limit = tol * float(w.abs().max())
+    norm_err = float((g - w).norm() / w.norm())
+    ok = max_err <= limit and norm_err <= norm_tol
     say(f"  {name}: max_abs_err={max_err:.3e} <= {tol} * max|want| = "
-        f"{limit:.3e} {'ok' if max_err <= limit else 'OUT OF TOLERANCE'}")
-    if not max_err <= limit:
+        f"{limit:.3e} (median|want|={float(w.abs().median()):.3e}); "
+        f"|err|/|want|={norm_err:.3e} <= {norm_tol} "
+        f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+    if not ok:
         fail(f"{name} disagrees with its plain version")
     return max_err
 
@@ -337,7 +349,8 @@ def main() -> int:
         for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
             if dtype == "bfloat16":
                 bwd_errs.append(compare_scaled(torch, f"{tag} {name}", g_,
-                                               w_, BWD_TOL[dtype]))
+                                               w_, BWD_TOL[dtype],
+                                               BWD_NORM_TOL))
             else:
                 bwd_errs.append(compare(torch, f"{tag} {name}", g_, w_,
                                         dtype, tol=BWD_TOL[dtype]))
@@ -421,6 +434,26 @@ def main() -> int:
         f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
         f"{bound * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB / 3.35 TB/s); kernel at "
         f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+    # host cost of dispatch through the autograd Function, at the decode
+    # shape and under no_grad as a decode step calls it (113 per step)
+    xd = randn((N_BATCH, d), torch.bfloat16, 4)
+    host_us = {}
+    with torch.no_grad():
+        for label, fn in (("ops.rmsnorm", ops.rmsnorm),
+                          ("rmsnorm_fwd", rn.rmsnorm_fwd)):
+            for _ in range(200):
+                fn(xd, scale_main, cfg.norm_eps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn(xd, scale_main, cfg.norm_eps)
+            torch.cuda.synchronize()
+            host_us[label] = (time.perf_counter() - t0) / 2000 * 1e6
+    extra_us = host_us["ops.rmsnorm"] - host_us["rmsnorm_fwd"]
+    say(f"  dispatch @ ({N_BATCH}, {d}) bf16, no_grad: ops.rmsnorm "
+        f"{host_us['ops.rmsnorm']:.2f} us per call, bare wrapper "
+        f"{host_us['rmsnorm_fwd']:.2f} us: the autograd Function adds "
+        f"{extra_us:.2f} us, {extra_us * 113 / 1e3:.3f} ms per decode step")
     torch.cuda.synchronize()
 
     # ------------------------------------------------ 4. prefill, full width

@@ -18,7 +18,7 @@ from typing import Dict, List, Optional
 from repro_torch.api.events import EventBus
 from repro_torch.api.serving import ServeReport, generate
 from repro_torch.configs import RunConfig, get_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, default_checkpoint_dir
 from repro_torch.core.trainer import (MembershipEvent, TrainReport,
                                       TransientTrainer)
 from repro_torch.data.pipeline import ShardedLoader, SyntheticTokenSource
@@ -101,7 +101,7 @@ class Session:
         `resume=True` restores from `checkpoint_dir` when a checkpoint
         exists (lease permitting), which is how a replacement chief
         continues a run (pass a new `holder`). The default directory is the
-        reference's, namespaced by arch. `mode="async_ps"` and the §VI-B /
+        reference's name under TMPDIR, namespaced by arch. `mode="async_ps"` and the §VI-B /
         resilience / recalibration arguments are not ported yet and raise
         `NotImplementedError`.
         """
@@ -116,7 +116,7 @@ class Session:
         run = self.run
         if checkpoint_dir is not None:
             run = dataclasses.replace(run, checkpoint_dir=checkpoint_dir)
-        elif run.checkpoint_dir == RunConfig.checkpoint_dir:
+        elif run.checkpoint_dir == default_checkpoint_dir():
             # default path: keep resume-across-invocations but namespace by
             # arch so different models never restore each other's trees
             run = dataclasses.replace(

@@ -6,10 +6,9 @@ as nested dicts of numpy arrays, e.g.
 under the same paths (``embed``, ``final_norm/scale``,
 ``layers/attn/wq``, ..., stacked on the leading ``layers`` axis);
 `to_numpy` goes back. Both are bit-exact. numpy has no bf16 of its own:
-`to_numpy` gives a bf16 tensor as an int16 array of its raw words, or,
-for a caller that asks (``ml_bf16=True``), as an `ml_dtypes.bfloat16`
-array, the type JAX uses; only then is `ml_dtypes` imported. `torch`
-cannot reproduce `jax.random` streams, so this is how a test gives both
+`to_numpy` gives a bf16 tensor as an int16 array of its raw words, which
+needs no `ml_dtypes` (``.view(ml_dtypes.bfloat16)`` gives JAX's type).
+`torch` cannot reproduce `jax.random` streams, so this is how a test gives both
 packages one set of weights.
 """
 from __future__ import annotations
@@ -31,14 +30,10 @@ def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _to_array(t: torch.Tensor, ml_bf16: bool = False) -> np.ndarray:
+def _to_array(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        words = t.view(torch.int16).numpy().copy()
-        if not ml_bf16:
-            return words
-        import ml_dtypes
-        return words.view(ml_dtypes.bfloat16)
+        t = t.view(torch.int16)
     return t.numpy().copy()
 
 
@@ -49,7 +44,7 @@ def from_numpy(values: Any, device: DeviceLike = None) -> Any:
     return tree_map(lambda a: _to_tensor(a, dev), values)
 
 
-def to_numpy(params: Any, ml_bf16: bool = False) -> Any:
+def to_numpy(params: Any) -> Any:
     """The port's parameter tree -> nested dicts of numpy arrays (bf16 as
-    raw int16 words unless ``ml_bf16``)."""
-    return tree_map(lambda t: _to_array(t, ml_bf16), params)
+    raw int16 words)."""
+    return tree_map(_to_array, params)

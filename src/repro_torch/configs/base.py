@@ -6,7 +6,10 @@ Dropped from the reference: `use_pallas` and `unroll_layers`, which steer
 XLA tracing. The port takes its hand-written kernels whenever a tensor
 lies on the card (`repro_torch.kernels.ops`), and its layer loop is
 plain Python. `RunConfig` is the reference's, field for field; its
-`compilation_cache_dir` is accepted and ignored (nothing is jitted), and
+default `checkpoint_dir` keeps the reference's name (``repro_ckpt``) but
+lies in the temporary directory that ``TMPDIR`` names, as
+`default_checkpoint_dir` gives it; its `compilation_cache_dir` is
+accepted and ignored (nothing is jitted), and
 `resilience`/`recalibration` other than None are refused by the trainer
 until those layers are ported. Shape and mesh configs come with the
 slices that use them.
@@ -14,7 +17,9 @@ slices that use them.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import os
+import tempfile
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -182,6 +187,11 @@ class ModelConfig:
         return total - inactive
 
 
+def default_checkpoint_dir() -> str:
+    """The reference's default checkpoint directory, under TMPDIR."""
+    return os.path.join(tempfile.gettempdir(), "repro_ckpt")
+
+
 @dataclass(frozen=True)
 class RunConfig:
     """Training-run hyperparameters (used by the launcher/examples)."""
@@ -192,7 +202,7 @@ class RunConfig:
     total_steps: int = 1000
     grad_clip: float = 1.0
     checkpoint_interval: int = 500        # steps (paper: I_c)
-    checkpoint_dir: str = "/tmp/repro_ckpt"
+    checkpoint_dir: str = field(default_factory=default_checkpoint_dir)
     zero1: bool = True                    # no-op on one card
     master_weights: bool = False          # bf16 live params + fp32 master in opt
     grad_compression: str = "none"        # none | bf16 | int8 | topk

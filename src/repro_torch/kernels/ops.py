@@ -6,8 +6,8 @@ The rule: a tensor on the CPU takes the plain PyTorch version
 launches the hand-written kernel or raises. There is no fallback from the
 card to the plain version and no flag that turns a kernel off.
 
-On the card, where a gradient is wanted, each op is a
-`torch.autograd.Function` (the twin of the reference's `jax.custom_vjp`):
+On the card each op is a `torch.autograd.Function` (the twin of the
+reference's `jax.custom_vjp`):
 
 * flash attention: the forward kernel, whose (q, k, v, out, lse) are
   saved, and the backward kernel (``csrc/flash_attention_bwd.cu``);
@@ -15,8 +15,8 @@ On the card, where a gradient is wanted, each op is a
   over `ref.rmsnorm_ref`, as the reference's `_rn_bwd` takes `jax.vjp` of
   its oracle (it has no Pallas backward).
 
-Without a gradient (``torch.no_grad()``: prefill, serving) the kernels
-are called directly and nothing is saved.
+Under ``torch.no_grad()`` (prefill, serving) autograd builds no graph, so
+what the forward saves is dropped when it returns.
 
 ``launches`` counts each kernel's launches, keyed by kernel name, and is
 incremented only where a kernel was launched, so a run can show that its
@@ -42,20 +42,11 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _wants_grad(*ts: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
-def _flash_fwd(q, k, v, causal):
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-    launches["flash_attention_fwd"] += 1
-    return out, lse
-
-
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out, lse = _flash_fwd(q, k, v, causal)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        launches["flash_attention_fwd"] += 1
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -78,15 +69,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fa.check_shapes(q, k, v, causal)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal)[0]
-    if _wants_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal)
-    return _flash_fwd(q, k, v, causal)[0]
-
-
-def _rmsnorm_fwd(x, scale, eps):
-    out = rn.rmsnorm_fwd(x, scale, eps)
-    launches["rmsnorm_fwd"] += 1
-    return out
+    return _FlashAttention.apply(q, k, v, causal)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -94,7 +77,9 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x, scale, eps):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        return _rmsnorm_fwd(x, scale, eps)
+        out = rn.rmsnorm_fwd(x, scale, eps)
+        launches["rmsnorm_fwd"] += 1
+        return out
 
     @staticmethod
     def backward(ctx, dy):
@@ -114,6 +99,4 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     """x:(..., d), scale:(d,) -> x's shape and dtype."""
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
-    if _wants_grad(x, scale):
-        return _RMSNorm.apply(x, scale, eps)
-    return _rmsnorm_fwd(x, scale, eps)
+    return _RMSNorm.apply(x, scale, eps)

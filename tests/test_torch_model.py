@@ -140,13 +140,13 @@ def test_cross_entropy_matches_jax():
     assert abs(got - want) < 1e-5 * max(1.0, abs(want))
 
 
-def test_bridge_gives_bf16_as_words_unless_asked():
+def test_bridge_gives_bf16_as_words():
     """bf16 leaves leave the port as raw int16 words, which need no
-    `ml_dtypes`; a caller that asks gets JAX's bf16 type, bit for bit."""
+    `ml_dtypes`; viewed as JAX's bf16 type they come back bit for bit."""
     t = torch.linspace(-3, 3, 11).to(torch.bfloat16)
     words = bridge.to_numpy({"x": t})["x"]
     assert words.dtype == np.int16
     np.testing.assert_array_equal(words, t.view(torch.int16).numpy())
-    typed = bridge.to_numpy({"x": t}, ml_bf16=True)["x"]
+    typed = words.view(jnp.bfloat16)
     assert typed.dtype == jnp.bfloat16
     assert torch.equal(bridge.from_numpy({"x": typed}, "cpu")["x"], t)

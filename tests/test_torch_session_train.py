@@ -4,6 +4,7 @@ writer-lease handover, checkpoint/resume (with the saved compression
 scheme and the legacy layout without a residual), `serve()` after
 `train()`, the CLI, and what is refused until it is ported."""
 import json
+import tempfile
 
 import pytest
 import torch
@@ -119,16 +120,15 @@ def test_serve_after_train_serves_the_trained_weights(tmp_path):
 
 
 def test_default_checkpoint_dir_is_arch_namespaced(tmp_path, monkeypatch):
-    """The reference's default directory gets the arch appended, so runs of
-    different models never restore each other's trees (the default is
-    pointed into tmp_path here)."""
-    import dataclasses
-    monkeypatch.setattr("repro_torch.api.session.RunConfig.checkpoint_dir",
-                        str(tmp_path))
+    """The reference's default directory lies under TMPDIR and gets the
+    arch appended, so runs of different models never restore each other's
+    trees (TMPDIR is pointed into tmp_path here)."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     s = _session(checkpoint_interval=0)
-    s.run = dataclasses.replace(s.run, checkpoint_dir=str(tmp_path))
+    assert s.run.checkpoint_dir == str(tmp_path / "repro_ckpt")
     s.train(1, **KW)
-    assert s.trainer.run.checkpoint_dir == str(tmp_path / "qwen3-1.7b")
+    assert s.trainer.run.checkpoint_dir == str(tmp_path / "repro_ckpt" /
+                                               "qwen3-1.7b")
     s.train(1, checkpoint_dir=str(tmp_path / "x"), **KW)   # verbatim
     assert s.trainer.run.checkpoint_dir == str(tmp_path / "x")
 

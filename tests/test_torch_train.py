@@ -378,16 +378,20 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bq,Sq,Sk,H,KV,hd,causal,dtype,tol", [
-    (1, 256, 256, 16, 8, 128, True, "bfloat16", 2e-2),
-    (2, 200, 200, 4, 2, 64, True, "bfloat16", 2e-2),   # ragged GQA
-    (2, 192, 320, 4, 2, 64, False, "float32", 3e-4),   # bidirectional
-    (1, 100, 100, 4, 1, 32, True, "float32", 3e-4),    # MQA
+@pytest.mark.parametrize("Bq,Sq,Sk,H,KV,hd,causal,dtype,tol,norm_tol", [
+    (1, 256, 256, 16, 8, 128, True, "bfloat16", 2e-2, 1e-2),
+    (2, 200, 200, 4, 2, 64, True, "bfloat16", 2e-2, 1e-2),   # ragged GQA
+    (2, 192, 320, 4, 2, 64, False, "float32", 3e-4, 3e-4),   # bidirectional
+    (1, 100, 100, 4, 1, 32, True, "float32", 3e-4, 3e-4),    # MQA
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(cuda, Bq, Sq, Sk, H, KV, hd,
-                                                causal, dtype, tol):
-    """max |kernel - plain| <= tol * max |plain| for dq, dk, dv (bf16: p
-    and ds are rounded to bf16 for their products)."""
+                                                causal, dtype, tol, norm_tol):
+    """max |kernel - plain| <= tol * max |plain| and |kernel - plain| /
+    |plain| (Frobenius) <= norm_tol for dq, dk, dv. bf16 rounds p and ds
+    to bf16 for their products; the norm bound holds the many small
+    gradients past the first tiles, which the max bound cannot (measured
+    on an H100: 2.5e-3 to 2.7e-3 at the bf16 cases, so 1e-2 leaves about
+    3.7x)."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=cuda).manual_seed(5)
     dt = getattr(torch, dtype)
@@ -403,6 +407,8 @@ def test_flash_bwd_kernel_matches_plain_on_card(cuda, Bq, Sq, Sk, H, KV, hd,
         assert gt.dtype == wt.dtype and gt.shape == wt.shape
         assert bool(torch.isfinite(gt).all())
         assert _rel(gt, wt) <= tol
+        assert float((gt.float() - wt.float()).norm()
+                     / wt.float().norm()) <= norm_tol
 
 
 @pytest.mark.cuda
