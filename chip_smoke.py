@@ -10,39 +10,49 @@ Phases, each of which exits non-zero on failure:
             with nvcc for sm_90a;
 3. kernels: hold each kernel against its plain PyTorch version on the card
             (flash-attention forward: out and lse; flash-attention
-            backward: dq, dk, dv; RMSNorm) and time the kernel, the plain
-            version and one PyTorch library call; the host cost of
-            RMSNorm's dispatch through its autograd Function;
-4. prefill: a full-width qwen3-1.7b prefill (B=1, S=2048, random weights
-            from seed 0) through `launch.steps.make_prefill_step`, which must
-            launch the flash kernel once per layer and the RMSNorm kernel
-            once per norm;
-5. serve:   `Session.serve` at full width (4 requests x 16 tokens after a
-            32-token prompt), greedy, twice with one seed: identical
-            streams, RMSNorm launches as predicted per step, and the
-            gateway's logits at the last prompt position agree with the
-            prefill path's;
-6. train:   `Session.train` at full width (4 steps, B=2, S=2048, AdamW):
-            28 flash forward, 28 flash backward and 113 RMSNorm launches per
-            step, finite losses and gradient norms, a first loss near
-            ln(vocab), every parameter changed by step 1; step time,
-            tokens/s, MFU, peak memory and the device's busy share;
-7. parity:  one `make_train_step` of qwen3-1.7b cut to 2 layers at full
-            width, on the card (kernels) and on the CPU (plain versions),
-            from one set of weights and one batch: loss, gradient norm and
-            every gradient leaf agree;
-7b. resume: checkpoint and resume on the card (SMOKE config): 2 steps, a
-            new Session that restores at step 2 and runs 2 more, against 4
-            uninterrupted steps.
+            backward: dq, dk, dv; RMSNorm; the SSD scan at the mamba2 and
+            zamba2 shapes) and time the kernel, the plain version and,
+            where one exists, one PyTorch library call; the host cost of
+            RMSNorm's dispatch through its autograd Function; the SSD
+            backward (autograd over the plain version);
+4-7b. qwen3-1.7b (dense), full width:
+   4. prefill: B=1, S=2048 through `launch.steps.make_prefill_step`, which
+            must launch the flash kernel once per layer and the RMSNorm
+            kernel once per norm;
+   5. serve: `Session.serve` (4 requests x 16 tokens after a 32-token
+            prompt), greedy, twice with one seed: identical streams,
+            RMSNorm launches as predicted per step, and the gateway's
+            logits at the last prompt position agree with prefill's;
+   6. train: `Session.train` (4 steps, B=2, S=2048, AdamW): 28 flash
+            forward, 28 flash backward and 113 RMSNorm launches per step,
+            finite losses and gradient norms, a first loss near ln(vocab),
+            every parameter changed by step 1; step time, tokens/s, MFU,
+            peak memory and the device's busy share;
+   7. parity: one `make_train_step` cut to 2 layers at full width, on the
+            card (kernels) and on the CPU (plain versions), from one set
+            of weights and one batch: loss, gradient norm and every
+            gradient leaf agree;
+   7b. resume: checkpoint and resume on the card (SMOKE config): 2 steps,
+            a new Session that restores at step 2 and runs 2 more, against
+            4 uninterrupted steps;
+8-11. mamba2-1.3b (Mamba2 SSD), full width: prefill (48 SSD and 97
+            RMSNorm launches), serve (97 RMSNorm launches a decode step,
+            no SSD: decode is the recurrence), train (48 SSD and 97
+            RMSNorm launches a step) and parity, as in 4-7;
+12. zamba2-1.2b (Mamba2 + one shared attention block), full width:
+            prefill (38 SSD, 6 flash, 89 RMSNorm launches) and serve (89
+            RMSNorm launches a decode step), as in 4-5.
 
-Then one JSON line per the kernels (launches from phases 4, 5 and 6, each
-counted from 0), the card line again, and the result line
+Then one JSON line per the kernels (launches summed over the prefill,
+serve and train phases, each counted from 0), the card line again, and
+the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the repository beside it, it fails
 before printing any result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -51,6 +61,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -81,8 +92,37 @@ PARITY_TOL = {"loss": 1e-3, "grad_norm": 5e-3, "grad_leaf": 5e-2}
 # kernel's bf16 output) across 28 layers
 SERVE_VS_PREFILL_TOL = 5e-2
 
+# mamba2 and zamba2 with random weights scale up bf16 rounding with depth
+# (the gated RMSNorm renormalises small rows; tests/test_torch_ssm.py): on
+# the CPU at full width the bf16 decode and prefill paths drift apart by
+# 0.6% of max |logit| at 2 layers, 4.9% at 8, 8.2% at 16, and on an H100
+# by 54% at mamba2-1.3b's 48 (PERF.md, PR 13). In fp32, with an fp32
+# decode state, they agreed to 1.9e-5 at 16 layers on the CPU; so the SSM
+# models are held in fp32, and their bf16 distance is printed
+SSM_SERVE_VS_PREFILL_TOL = 1e-3
+# mamba2 train step on the card vs the CPU, 2 layers at full width.
+# Calibrated on the first chip run with this phase (PERF.md §6, PR 13),
+# which gave 2.2e-5, 3.8e-3 and 4.3e-2 (layers/mixer/conv_w): the bf16
+# sums run in another order, and the gated RMSNorm scales up rounding
+# (tests/test_torch_ssm.py); 46x, 5.3x and 3.4x margins
+SSM_PARITY_TOL = {"loss": 1e-3, "grad_norm": 2e-2, "grad_leaf": 1.5e-1}
+# SSD kernel vs plain: (max |got - want| / max |want|, Frobenius); fp32 as
+# tests/test_kernels.py holds the Pallas scan, bf16 as the flash backward
+SSD_TOL = {"bfloat16": (2e-2, 1e-2), "float32": (5e-4, 5e-4)}
+# (b, s, h, p, g, n, chunk, dtype): the mamba2-1.3b prefill and train
+# shapes, zamba2-1.2b's, grouped B/C, one short ragged tile, fp32
+SSD_CASES = [(1, 2048, 64, 64, 1, 128, 256, "bfloat16"),
+             (2, 2048, 64, 64, 1, 128, 256, "bfloat16"),
+             (1, 2048, 64, 64, 1, 64, 256, "bfloat16"),
+             (1, 256, 8, 64, 2, 32, 128, "bfloat16"),
+             (1, 32, 64, 64, 1, 128, 32, "bfloat16"),
+             (2, 128, 4, 32, 2, 16, 64, "float32"),
+             (1, 200, 8, 64, 2, 64, 200, "float32")]
+
 SEQ, N_TOKENS, N_BATCH, PROMPT_LEN = 2048, 16, 4, 32
 TRAIN_STEPS, TRAIN_BATCH = 4, 2
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
+           "ssd_scan_fwd")
 
 
 def fail(msg: str) -> None:
@@ -147,6 +187,7 @@ def device_profile(torch, fn, n: int):
 CATEGORIES = (("flash_fwd_", "flash forward (ours)"),
               ("flash_bwd_", "flash backward (ours)"),
               ("rmsnorm_kernel", "RMSNorm (ours)"),
+              ("ssd_scan_kernel", "SSD scan (ours)"),
               ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"),
               ("copy_kernel", "copies and dtype casts"),
               ("reduce_kernel", "reductions"),
@@ -222,6 +263,306 @@ def fingerprint(torch, tree, flatten):
     return out
 
 
+def release(torch) -> None:
+    """Free what a phase left: its Session and the bus handlers that refer
+    to it form cycles, which hold device memory until collected."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def counts(**kw):
+    """Launch counts of every kernel: those named, and 0 for the rest."""
+    return {name: kw.get(name, 0) for name in KERNELS}
+
+
+def ssd_flops(b, s, h, p, g, n, chunk) -> float:
+    """Products the SSD scan needs: per chunk of L tokens the causal
+    halves of C·Bᵀ (once per group) and of scores·x (per head), plus
+    C·S and the state update (per head)."""
+    L = chunk
+    pairs = L * (L + 1)            # 2 x the causal (l, m) pairs
+    return b * (s // L) * (g * n * pairs + h * (p * pairs + 4 * L * n * p))
+
+
+def phase_prefill(c, tag: str, arch: str, want: dict):
+    """A full-width prefill (B=1, S=SEQ, random weights from seed 0)
+    through `make_prefill_step`, whose launches must be `want`. Returns
+    (session, params, launches)."""
+    torch = c.torch
+    cfg = c.get_config(arch, smoke=False)
+    say(f"[{tag}] prefill: {cfg.name} full width (L={cfg.n_layers} "
+        f"d={cfg.d_model} V={cfg.vocab_size}), B=1 S={SEQ}, {cfg.dtype}")
+    session = c.Session.from_arch(arch, smoke=False)
+    t0 = time.monotonic()
+    params = session.params
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in c.flatten(params))
+    say(f"  init {n_params / 1e9:.3f} B fp32 params on the card in "
+        f"{time.monotonic() - t0:.2f}s")
+    prefill = c.make_prefill_step(cfg)
+    c.gen.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=c.gen,
+                           device=c.dev)
+    prefill(params, {"tokens": tokens})            # warm-up (cuBLAS, build)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c.ops.reset_launches()
+    t0 = time.monotonic()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    first_ms = (time.monotonic() - t0) * 1e3
+    launches = dict(c.ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    say(f"  launches {launches} (predicted {want})")
+    if launches != want:
+        fail("prefill did not launch the kernels as predicted")
+    if tuple(logits.shape) != (1, SEQ, cfg.vocab_size):
+        fail(f"prefill logits shape {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        fail("prefill logits are not finite")
+    walls = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    prefill_ms = statistics.median(walls)
+    say(f"  prefill {prefill_ms:.2f} ms median of 3 (counted run "
+        f"{first_ms:.2f} ms), {SEQ / prefill_ms * 1e3:.0f} tok/s, peak "
+        f"memory {peak_gb:.2f} GB")
+    say_profile("prefill", prefill_ms, *device_profile(
+        torch, lambda: prefill(params, {"tokens": tokens}), 2))
+    return session, params, launches
+
+
+def phase_serve(c, tag: str, session, params, per_step: dict, tol: float,
+                in_fp32: bool = False):
+    """`Session.serve` twice with one seed: identical greedy streams,
+    `per_step` launches in each decode step, and the gateway's logits at
+    the last prompt position within `tol` (of max |logit|) of prefill's:
+    in the model's dtype with the engine's bf16 state, or with `in_fp32`
+    in an fp32 model and state (the bf16 distance is then printed only).
+    Returns the launches."""
+    torch = c.torch
+    cfg = session.cfg
+    steps = PROMPT_LEN + N_TOKENS - 1
+    say(f"[{tag}] serve: {cfg.name} Session.serve(tokens={N_TOKENS}, "
+        f"batch={N_BATCH}, prompt_len={PROMPT_LEN}), greedy, twice; "
+        f"{steps} steps each")
+    c.ops.reset_launches()
+    reps = [session.serve(tokens=N_TOKENS, batch=N_BATCH,
+                          prompt_len=PROMPT_LEN, seed=1) for _ in range(2)]
+    torch.cuda.synchronize()
+    serve_launches = dict(c.ops.launches)
+    want = {k: 2 * steps * n for k, n in per_step.items()}
+    say(f"  launches {serve_launches} (predicted {want}: {per_step} per "
+        "decode step)")
+    if serve_launches != want:
+        fail("serve did not launch the kernels as predicted")
+    a, b = (r.generated for r in reps)
+    if a.shape != (N_BATCH, N_TOKENS) or not torch.equal(a, b):
+        fail(f"greedy replay differs: {a.tolist()} vs {b.tolist()}")
+    say(f"  greedy replay identical; slot 0 tokens {a[0].tolist()}")
+    for i, r in enumerate(reps):
+        say(f"  run {i}: {r.tokens_per_second:.1f} tok/s, decode p50 "
+            f"{r.decode_ms_p50:.3f} ms p95 {r.decode_ms_p95:.3f} ms p99 "
+            f"{r.decode_ms_p99:.3f} ms, prompt feed {r.prefill_seconds:.3f}s")
+
+    # the gateway's logits at the last prompt position vs prefill's
+    c.gen.manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (N_BATCH, PROMPT_LEN),
+                           generator=c.gen, device=c.dev)
+
+    def gateway_vs_prefill(cfg, state_dtype):
+        eng = c.GatewayEngine(cfg, params, slots=N_BATCH,
+                              max_len=PROMPT_LEN + N_TOKENS, seed=1)
+        if state_dtype is not None:   # in place of the engine's bf16 state
+            eng.state, eng._axes = c.model_api.init_decode_state(
+                cfg, N_BATCH, PROMPT_LEN + N_TOKENS, dtype=state_dtype,
+                device=c.dev)
+        for slot in range(N_BATCH):
+            eng.join(slot, rid=slot, prompt=prompt[slot].tolist(),
+                     max_new=N_TOKENS)
+        for _ in range(PROMPT_LEN):
+            eng.step()
+        served = eng.last_logits.float()
+        pre = c.make_prefill_step(cfg)(params, {"tokens": prompt})[:, -1]
+        pre = pre.float()
+        rel = float((served - pre).abs().max() / pre.abs().max())
+        agree = float((served.argmax(-1) == pre.argmax(-1)).float().mean())
+        say(f"  gateway vs prefill logits at position {PROMPT_LEN - 1}, "
+            f"{cfg.dtype} model, "
+            f"{'fp32' if state_dtype is torch.float32 else 'bf16'} state: "
+            f"max|diff|/max|prefill| = {rel:.4e}, argmax agreement "
+            f"{agree:.2f}")
+        return rel, eng
+
+    rel, eng = gateway_vs_prefill(cfg, None)
+    if in_fp32:
+        rel, _ = gateway_vs_prefill(cfg.with_(dtype="float32"), torch.float32)
+    say(f"  held: {rel:.4e} <= {tol} ({'fp32' if in_fp32 else 'bf16'})")
+    if not math.isfinite(rel) or rel > tol:
+        fail("the serving path disagrees with the prefill path")
+    say_profile(f"one gateway decode step ({N_BATCH} slots)",
+                reps[1].decode_ms_p50, *device_profile(torch, eng.step, 4))
+    return serve_launches
+
+
+def phase_train(c, tag: str, arch: str, per_step: dict,
+                extra_flops: float, what: str):
+    """`Session.train` at full width (TRAIN_STEPS steps, B=TRAIN_BATCH,
+    S=SEQ, AdamW): `per_step` launches in each step, finite losses, a
+    first loss near ln(vocab), every parameter changed by step 1; step
+    time, tokens/s, MFU (6 N per token plus `extra_flops` a step), peak
+    memory and the busy share. Returns the launches."""
+    torch = c.torch
+    cfg = c.get_config(arch, smoke=False)
+    tokens_per_step = TRAIN_BATCH * SEQ
+    step_flops = 6.0 * cfg.param_count() * tokens_per_step + extra_flops
+    say(f"[{tag}] train: {cfg.name} Session.train({TRAIN_STEPS} steps, "
+        f"global_batch={TRAIN_BATCH}, seq_len={SEQ}), AdamW, full width; "
+        f"{step_flops / 1e12:.2f} TFLOP per step ({what})")
+    tsess = c.Session.from_arch(arch, smoke=False, checkpoint_interval=0)
+    # the trainer draws its weights as `model_api.init` does, from a
+    # generator seeded with 0 on the card: two draws must agree for the
+    # "changed by step 1" check below to mean anything
+    before = fingerprint(torch, c.model_api.init(cfg, device=c.dev)[0],
+                         c.flatten)
+    if fingerprint(torch, c.model_api.init(cfg, device=c.dev)[0],
+                   c.flatten) != before:
+        fail("two seeded draws of the weights differ")
+    torch.cuda.empty_cache()
+    after_step1 = {}
+
+    def on_step(kind, payload):
+        if payload["step"] == 0:
+            after_step1.update(fingerprint(
+                torch, tsess.trainer.state.params, c.flatten))
+    tsess.bus.subscribe("step", on_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c.ops.reset_launches()
+    with tempfile.TemporaryDirectory() as ckdir:
+        rep = tsess.train(TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=SEQ,
+                          members=1, checkpoint_dir=ckdir)
+    torch.cuda.synchronize()
+    train_launches = dict(c.ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+    say(f"  launches {train_launches} (predicted {want}: {per_step} per "
+        "step)")
+    if train_launches != want:
+        fail("the train steps did not launch the kernels as predicted")
+    say(f"  losses {rep.losses}; grad norms {rep.grad_norms}")
+    if not all(math.isfinite(x) for x in rep.losses + rep.grad_norms):
+        fail("a loss or gradient norm is not finite")
+    ln_v = math.log(cfg.vocab_size)
+    if abs(rep.losses[0] - ln_v) > 1.5:
+        fail(f"first loss {rep.losses[0]:.3f} is not within 1.5 of "
+             f"ln({cfg.vocab_size}) = {ln_v:.3f}")
+    unchanged = [p for p in before if before[p] == after_step1[p]]
+    say(f"  {len(before) - len(unchanged)} of {len(before)} parameter leaves "
+        "changed by step 1")
+    if unchanged or len(after_step1) != len(before):
+        fail(f"parameter leaves unchanged by step 1: {unchanged}")
+    times = [r.t for r in tsess.trainer.profiler.records]
+    step_s = statistics.median(b - a for a, b in zip(times, times[1:]))
+    mfu = step_flops / step_s / PEAK_FLOPS["bfloat16"]
+    say(f"  step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
+        f"{tokens_per_step / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% "
+        f"of 989 TFLOP/s, peak memory {peak_gb:.2f} GB, first loss "
+        f"{rep.losses[0]:.4f} (ln V = {ln_v:.4f})")
+    trainer = tsess.trainer
+    loader = c.ShardedLoader(c.SyntheticTokenSource(cfg.vocab_size, SEQ,
+                                                    seed=1), TRAIN_BATCH)
+    batch = {k_: torch.from_numpy(v_).to(c.dev)
+             for k_, v_ in loader.next_global(1).items()}
+    say_profile("one train step", step_s * 1e3, *device_profile(
+        torch, lambda: trainer.train_step(trainer.state, batch), 1),
+                top=12, by_category=True)
+    state = trainer.state
+    zeros = c.tree_map(torch.zeros_like, state.params)
+    opt_ms = time_ms(torch, lambda: trainer.opt.update(
+        zeros, state.opt, state.params, state.step), warmup=1, iters=3)
+    n_params = sum(t.numel() for _, t in c.flatten(state.params))
+    say(f"  AdamW update alone ({n_params / 1e9:.2f} B fp32 params, CUDA "
+        f"events): {opt_ms:.2f} ms, {100 * opt_ms / (step_s * 1e3):.1f}% of "
+        "the step")
+    del tsess, trainer, rep, batch, state, zeros
+    release(torch)
+    return train_launches
+
+
+def phase_parity(c, tag: str, arch: str, want_step: dict, tol: dict):
+    """One `make_train_step` of `arch` cut to 2 layers at full width, on
+    the card (kernels) and on the CPU (plain versions), from one set of
+    weights and one batch: loss, gradient norm and every gradient leaf
+    within `tol`."""
+    torch = c.torch
+    pcfg = c.get_config(arch, smoke=False).with_(n_layers=2)
+    p_seq = 256
+    say(f"[{tag}] parity: make_train_step on {pcfg.name} cut to "
+        f"{pcfg.n_layers} layers at full width, B=1 S={p_seq} bf16, on the "
+        "card (kernels) and on the CPU (plain versions)")
+    cpu_gen = torch.Generator().manual_seed(3)
+    cpu_params, _ = c.model_api.init(pcfg, cpu_gen, device="cpu")
+    loader = c.ShardedLoader(c.SyntheticTokenSource(pcfg.vocab_size, p_seq,
+                                                    seed=2), 1)
+    np_batch = loader.next_global(1)
+    results = {}
+    for where in ("cuda", "cpu"):
+        device = c.dev if where == "cuda" else torch.device("cpu")
+        params = c.tree_map(lambda t: t.to(device, copy=True), cpu_params)
+        batch = {k_: torch.from_numpy(v_).to(device)
+                 for k_, v_ in np_batch.items()}
+        t0 = time.monotonic()
+        live = c.tree_map(lambda t: t.detach().requires_grad_(), params)
+        c.model_api.loss_fn(live, pcfg, batch).backward()
+        grads = {p_: t.grad.float().cpu() for p_, t in c.flatten(live)}
+        del live
+        train_step, opt = c.steps.make_train_step(pcfg, c.RunConfig())
+        state = c.steps.TrainState(params, opt.init(params),
+                                   torch.zeros((), dtype=torch.int32))
+        start = fingerprint(torch, params, c.flatten)
+        c.ops.reset_launches()
+        state, metrics = train_step(state, batch)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            step_launches = dict(c.ops.launches)
+        changed = fingerprint(torch, state.params, c.flatten)
+        results[where] = dict(loss=float(metrics["loss"]),
+                              grad_norm=float(metrics["grad_norm"]),
+                              grads=grads, seconds=time.monotonic() - t0,
+                              unchanged=[p_ for p_ in start
+                                         if start[p_] == changed[p_]])
+        del params, state, batch, train_step, opt
+    release(torch)
+    gpu, cpu = results["cuda"], results["cpu"]
+    say(f"  card train step launches {step_launches} (predicted "
+        f"{want_step}); gradient pass + step: card {gpu['seconds']:.1f}s, "
+        f"CPU {cpu['seconds']:.1f}s")
+    if step_launches != want_step:
+        fail("the card's train step did not launch the kernels as predicted")
+    if gpu["unchanged"]:
+        fail(f"leaves unchanged by the card's step: {gpu['unchanged']}")
+    rel = {k_: abs(gpu[k_] - cpu[k_]) / abs(cpu[k_])
+           for k_ in ("loss", "grad_norm")}
+    leaf_rel = {p_: float((gpu["grads"][p_] - g).abs().max())
+                / float(g.abs().max()) for p_, g in cpu["grads"].items()}
+    worst = max(leaf_rel.items(), key=lambda kv: kv[1])
+    say(f"  loss card {gpu['loss']:.6f} CPU {cpu['loss']:.6f} (rel "
+        f"{rel['loss']:.3e}, tol {tol['loss']}); grad norm card "
+        f"{gpu['grad_norm']:.6f} CPU {cpu['grad_norm']:.6f} (rel "
+        f"{rel['grad_norm']:.3e}, tol {tol['grad_norm']}); worst "
+        f"gradient leaf {worst[0]}: max|diff|/max|leaf| {worst[1]:.3e} "
+        f"(tol {tol['grad_leaf']})")
+    say("  every leaf: " + ", ".join(f"{p_} {r:.2e}"
+                                     for p_, r in sorted(leaf_rel.items())))
+    if (rel["loss"] > tol["loss"] or rel["grad_norm"] > tol["grad_norm"]
+            or not worst[1] <= tol["grad_leaf"]):
+        fail("the card's train step disagrees with the plain path")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -238,6 +579,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch import steps as st
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import api as model_api
@@ -256,21 +598,21 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
-    say(f"[1/7] card: {card}")
+    say(f"[1/12] card: {card}")
     say(f"      torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count={torch.cuda.device_count()}")
 
     # --------------------------------------------------------- 2. build
     t0 = time.monotonic()
     _build.library()
-    say(f"[2/7] build: {_build.library_path().name} in "
+    say(f"[2/12] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
     for line in _build.last_build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             say(f"      {line.strip()}")
 
     # ------------------------------------------------ 3. kernels vs plain
-    say("[3/7] kernels vs plain versions")
+    say("[3/12] kernels vs plain versions")
     cfg = get_config("qwen3-1.7b", smoke=False)
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     report = {}
@@ -456,254 +798,108 @@ def main() -> int:
         f"{extra_us:.2f} us, {extra_us * 113 / 1e3:.3f} ms per decode step")
     torch.cuda.synchronize()
 
-    # ------------------------------------------------ 4. prefill, full width
-    say(f"[4/7] prefill: {cfg.name} full width (L={cfg.n_layers} d={d} "
-        f"H={H}/KV={KV} hd={hd} V={cfg.vocab_size}), B=1 S={SEQ}, "
-        f"{cfg.dtype}")
-    session = Session.from_arch("qwen3-1.7b", smoke=False)
-    t0 = time.monotonic()
-    params = session.params
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for _, t in flatten(params))
-    say(f"  init {n_params / 1e9:.3f} B fp32 params on the card in "
-        f"{time.monotonic() - t0:.2f}s")
-    prefill = make_prefill_step(cfg)
-    gen.manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=gen,
-                           device=dev)
-    prefill(params, {"tokens": tokens})            # warm-up (cuBLAS, build)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.monotonic()
-    logits = prefill(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    first_ms = (time.monotonic() - t0) * 1e3
-    launches = dict(ops.launches)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_norms = 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm else 0)
-    want_launches = {"flash_attention_fwd": cfg.n_layers,
-                     "flash_attention_bwd": 0, "rmsnorm_fwd": n_norms}
-    say(f"  launches {launches} (predicted {want_launches})")
-    if launches != want_launches:
-        fail("prefill did not launch the kernels as predicted")
-    if tuple(logits.shape) != (1, SEQ, cfg.vocab_size):
-        fail(f"prefill logits shape {tuple(logits.shape)}")
-    if not bool(torch.isfinite(logits).all()):
-        fail("prefill logits are not finite")
-    walls = []
-    for _ in range(3):
-        t0 = time.monotonic()
-        prefill(params, {"tokens": tokens})
+    ssd_errs = []
+
+    def ssd_inputs(b, s, h, p, g, n, dtype, seed=6):
+        gen.manual_seed(seed)
+
+        def normal(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        x = normal(b, s, h, p).to(dtype)
+        dt = F.softplus(normal(b, s, h))
+        A = -torch.exp(normal(h) * 0.5)
+        return (x, dt, A, normal(b, s, g, n).to(dtype),
+                normal(b, s, g, n).to(dtype))
+
+    for (b, s, h, p, g, n, chunk, dtype) in SSD_CASES:
+        ins = ssd_inputs(b, s, h, p, g, n, getattr(torch, dtype))
+        got = ss.ssd_scan_fwd(*ins, chunk)
+        want = ref.ssd_scan_ref(*ins, chunk)
         torch.cuda.synchronize()
-        walls.append((time.monotonic() - t0) * 1e3)
-    prefill_ms = statistics.median(walls)
-    say(f"  prefill {prefill_ms:.2f} ms median of 3 (counted run "
-        f"{first_ms:.2f} ms), {SEQ / prefill_ms * 1e3:.0f} tok/s, peak "
-        f"memory {peak_gb:.2f} GB")
-    say_profile("prefill", prefill_ms, *device_profile(
-        torch, lambda: prefill(params, {"tokens": tokens}), 2))
-    del logits
+        ssd_errs.append(compare_scaled(
+            torch, f"ssd b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk} "
+            f"{dtype}", got, want, *SSD_TOL[dtype]))
+        del ins, got, want
 
-    # -------------------------------------------------- 5. serve, full width
-    steps = PROMPT_LEN + N_TOKENS - 1
-    say(f"[5/7] serve: Session.serve(tokens={N_TOKENS}, batch={N_BATCH}, "
-        f"prompt_len={PROMPT_LEN}), greedy, twice; {steps} steps each")
-    ops.reset_launches()
-    reps = [session.serve(tokens=N_TOKENS, batch=N_BATCH,
-                          prompt_len=PROMPT_LEN, seed=1) for _ in range(2)]
+    b, s, h, p, g, n, chunk, _ = SSD_CASES[0]       # mamba2-1.3b prefill
+    ins = ssd_inputs(b, s, h, p, g, n, torch.bfloat16)
+    ms = time_ms(torch, lambda: ss.ssd_scan_fwd(*ins, chunk))
+    plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*ins, chunk),
+                       warmup=2, iters=10)
+    flops = ssd_flops(b, s, h, p, g, n, chunk)
+    nbytes = (2 * 2 * ins[0].numel() + 4 * (ins[1].numel() + h)
+              + 2 * (ins[3].numel() + ins[4].numel()))   # x, y; dt, A; B, C
+    bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+    report["ssd_scan_fwd"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:64",
+        max_abs_err=max(ssd_errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound * 1e3,
+        bound_by=("operations" if flops / PEAK_FLOPS["bfloat16"]
+                  >= nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=None)     # no single PyTorch call computes the SSD scan
+    _, ranked = device_profile(torch, lambda: ss.ssd_scan_fwd(*ins, chunk), 5)
+    say(f"  ssd_scan_fwd @ b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk} "
+        f"bf16: kernel {ms:.4f} ms per call "
+        f"({kernel_ms(ranked, 'ssd_scan_kernel'):.4f} ms on the device), "
+        f"plain {plain_ms:.4f} ms, no library call, bound "
+        f"{bound * 1e3:.4f} ms ({flops / 1e9:.2f} GFLOP / 989 TFLOP/s; "
+        f"{nbytes / 1e6:.1f} MB / 3.35 TB/s); kernel at "
+        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+    # the backward is the plain version's, by recompute (`ops._SSDScan`)
+    b = TRAIN_BATCH
+    ins = [t.requires_grad_() for t in ssd_inputs(b, s, h, p, g, n,
+                                                  torch.bfloat16)]
+    y = ops.ssd_scan(*ins, chunk)
+    dy = torch.randn_like(y)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        y, ins, dy, retain_graph=True), warmup=1, iters=5)
+    say(f"  ops.ssd_scan backward @ b={b} (autograd over the plain version, "
+        f"by recompute): {bwd_ms:.3f} ms per call")
+    del ins, y, dy
     torch.cuda.synchronize()
-    serve_launches = dict(ops.launches)
-    want_serve = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                  "rmsnorm_fwd": 2 * steps * n_norms}
-    say(f"  launches {serve_launches} (predicted {want_serve}: "
-        f"{n_norms} RMSNorm launches per decode step)")
-    if serve_launches != want_serve:
-        fail("serve did not launch the RMSNorm kernel as predicted")
-    a, b = (r.generated for r in reps)
-    if a.shape != (N_BATCH, N_TOKENS) or not torch.equal(a, b):
-        fail(f"greedy replay differs: {a.tolist()} vs {b.tolist()}")
-    say(f"  greedy replay identical; slot 0 tokens {a[0].tolist()}")
-    for i, r in enumerate(reps):
-        say(f"  run {i}: {r.tokens_per_second:.1f} tok/s, decode p50 "
-            f"{r.decode_ms_p50:.3f} ms p95 {r.decode_ms_p95:.3f} ms p99 "
-            f"{r.decode_ms_p99:.3f} ms, prompt feed {r.prefill_seconds:.3f}s")
 
-    # the gateway's logits at the last prompt position vs prefill's
-    gen.manual_seed(7)
-    prompt = torch.randint(0, cfg.vocab_size, (N_BATCH, PROMPT_LEN),
-                           generator=gen, device=dev)
-    eng = GatewayEngine(cfg, params, slots=N_BATCH,
-                        max_len=PROMPT_LEN + N_TOKENS, seed=1)
-    for slot in range(N_BATCH):
-        eng.join(slot, rid=slot, prompt=prompt[slot].tolist(),
-                 max_new=N_TOKENS)
-    for _ in range(PROMPT_LEN):
-        eng.step()
-    served = eng.last_logits.float().clone()
-    pre = prefill(params, {"tokens": prompt})[:, -1].float()
-    rel = float((served - pre).abs().max() / pre.abs().max())
-    agree = float((served.argmax(-1) == pre.argmax(-1)).float().mean())
-    say(f"  gateway vs prefill logits at position {PROMPT_LEN - 1}: "
-        f"max|diff|/max|prefill| = {rel:.4e} (tol {SERVE_VS_PREFILL_TOL}), "
-        f"argmax agreement {agree:.2f}")
-    if not math.isfinite(rel) or rel > SERVE_VS_PREFILL_TOL:
-        fail("the serving path disagrees with the prefill path")
-    say_profile("one gateway decode step (4 slots)",
-                reps[1].decode_ms_p50, *device_profile(torch, eng.step, 4))
+    c = types.SimpleNamespace(
+        torch=torch, dev=dev, gen=gen, ops=ops, Session=Session,
+        get_config=get_config, RunConfig=RunConfig, flatten=flatten,
+        tree_map=tree_map, model_api=model_api, steps=st,
+        make_prefill_step=make_prefill_step, GatewayEngine=GatewayEngine,
+        ShardedLoader=ShardedLoader,
+        SyntheticTokenSource=SyntheticTokenSource)
+    main_path = counts()
 
-    del session, params, eng, served, pre, reps
-    torch.cuda.empty_cache()
+    def add(launches):
+        for name in main_path:
+            main_path[name] += launches[name]
 
-    # ---------------------------------------------- 6. train, full width
-    tokens_per_step = TRAIN_BATCH * SEQ
+    # --------------------------------------------- 4-7. qwen3-1.7b, dense
+    L = cfg.n_layers
+    n_norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
+    session, params, launches = phase_prefill(
+        c, "4/12", "qwen3-1.7b",
+        counts(flash_attention_fwd=L, rmsnorm_fwd=n_norms))
+    add(launches)
+    add(phase_serve(c, "5/12", session, params,
+                    counts(rmsnorm_fwd=n_norms), SERVE_VS_PREFILL_TOL))
+    del session, params
+    release(torch)
     pairs = SEQ * (SEQ + 1) // 2
-    # 6 N per token for the weights, 14 hd per causal pair and head for
-    # the attention products (4 forward, 10 backward)
-    step_flops = (6.0 * cfg.param_count() * tokens_per_step
-                  + 14.0 * hd * pairs * H * TRAIN_BATCH * cfg.n_layers)
-    say(f"[6/7] train: Session.train({TRAIN_STEPS} steps, global_batch="
-        f"{TRAIN_BATCH}, seq_len={SEQ}), AdamW, full width; "
-        f"{step_flops / 1e12:.2f} TFLOP per step")
-    tsess = Session.from_arch("qwen3-1.7b", smoke=False, checkpoint_interval=0)
-    # the trainer draws its weights as `model_api.init` does, from a
-    # generator seeded with 0 on the card: two draws must agree for the
-    # "changed by step 1" check below to mean anything
-    before = fingerprint(torch, model_api.init(cfg, device=dev)[0], flatten)
-    if fingerprint(torch, model_api.init(cfg, device=dev)[0],
-                   flatten) != before:
-        fail("two seeded draws of the weights differ")
-    torch.cuda.empty_cache()
-    after_step1 = {}
-
-    def on_step(kind, payload):
-        if payload["step"] == 0:
-            after_step1.update(fingerprint(
-                torch, tsess.trainer.state.params, flatten))
-    tsess.bus.subscribe("step", on_step)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    with tempfile.TemporaryDirectory() as ckdir:
-        rep = tsess.train(TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=SEQ,
-                          members=1, checkpoint_dir=ckdir)
-    torch.cuda.synchronize()
-    train_launches = dict(ops.launches)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    per_step = {"flash_attention_fwd": cfg.n_layers,
-                "flash_attention_bwd": cfg.n_layers, "rmsnorm_fwd": n_norms}
-    want_train = {k: TRAIN_STEPS * n for k, n in per_step.items()}
-    say(f"  launches {train_launches} (predicted {want_train}: {per_step} "
-        f"per step)")
-    if train_launches != want_train:
-        fail("the train steps did not launch the kernels as predicted")
-    say(f"  losses {rep.losses}; grad norms {rep.grad_norms}")
-    if not all(math.isfinite(x) for x in rep.losses + rep.grad_norms):
-        fail("a loss or gradient norm is not finite")
-    ln_v = math.log(cfg.vocab_size)
-    if abs(rep.losses[0] - ln_v) > 1.5:
-        fail(f"first loss {rep.losses[0]:.3f} is not within 1.5 of "
-             f"ln({cfg.vocab_size}) = {ln_v:.3f}")
-    unchanged = [p for p in before if before[p] == after_step1[p]]
-    say(f"  {len(before) - len(unchanged)} of {len(before)} parameter leaves "
-        "changed by step 1")
-    if unchanged or len(after_step1) != len(before):
-        fail(f"parameter leaves unchanged by step 1: {unchanged}")
-    times = [r.t for r in tsess.trainer.profiler.records]
-    step_s = statistics.median(b - a for a, b in zip(times, times[1:]))
-    mfu = step_flops / step_s / PEAK_FLOPS["bfloat16"]
-    say(f"  step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
-        f"{tokens_per_step / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% "
-        f"of 989 TFLOP/s, peak memory {peak_gb:.2f} GB, first loss "
-        f"{rep.losses[0]:.4f} (ln V = {ln_v:.4f})")
-    trainer = tsess.trainer
-    loader = ShardedLoader(SyntheticTokenSource(cfg.vocab_size, SEQ, seed=1),
-                           TRAIN_BATCH)
-    batch = {k_: torch.from_numpy(v_).to(dev)
-             for k_, v_ in loader.next_global(1).items()}
-    say_profile("one train step", step_s * 1e3, *device_profile(
-        torch, lambda: trainer.train_step(trainer.state, batch), 1),
-                top=12, by_category=True)
-    state = trainer.state
-    zeros = tree_map(torch.zeros_like, state.params)
-    opt_ms = time_ms(torch, lambda: trainer.opt.update(
-        zeros, state.opt, state.params, state.step), warmup=1, iters=3)
-    say(f"  AdamW update alone (1.72 B fp32 params, CUDA events): "
-        f"{opt_ms:.2f} ms, {100 * opt_ms / (step_s * 1e3):.1f}% of the step")
-    del tsess, trainer, rep, batch, state, zeros
-    torch.cuda.empty_cache()
-
-    # -------------------------- 7. train step: kernels vs plain versions
-    pcfg = cfg.with_(n_layers=2)
-    P_SEQ = 256
-    say(f"[7/7] parity: make_train_step on {cfg.name} cut to "
-        f"{pcfg.n_layers} layers at full width, B=1 S={P_SEQ} bf16, on the "
-        "card (kernels) and on the CPU (plain versions)")
-    cpu_gen = torch.Generator().manual_seed(3)
-    cpu_params, _ = model_api.init(pcfg, cpu_gen, device="cpu")
-    loader = ShardedLoader(SyntheticTokenSource(pcfg.vocab_size, P_SEQ,
-                                                seed=2), 1)
-    np_batch = loader.next_global(1)
-    results = {}
-    for where in ("cuda", "cpu"):
-        device = dev if where == "cuda" else torch.device("cpu")
-        params = tree_map(lambda t: t.to(device, copy=True), cpu_params)
-        batch = {k_: torch.from_numpy(v_).to(device)
-                 for k_, v_ in np_batch.items()}
-        t0 = time.monotonic()
-        live = tree_map(lambda t: t.detach().requires_grad_(), params)
-        model_api.loss_fn(live, pcfg, batch).backward()
-        grads = {p_: t.grad.float().cpu() for p_, t in flatten(live)}
-        del live
-        run = RunConfig()
-        train_step, opt = st.make_train_step(pcfg, run)
-        state = st.TrainState(params, opt.init(params),
-                              torch.zeros((), dtype=torch.int32))
-        start = fingerprint(torch, params, flatten)
-        ops.reset_launches()
-        state, metrics = train_step(state, batch)
-        if where == "cuda":
-            torch.cuda.synchronize()
-            step_launches = dict(ops.launches)
-        changed = fingerprint(torch, state.params, flatten)
-        results[where] = dict(loss=float(metrics["loss"]),
-                              grad_norm=float(metrics["grad_norm"]),
-                              grads=grads, seconds=time.monotonic() - t0,
-                              unchanged=[p_ for p_ in start
-                                         if start[p_] == changed[p_]])
-        del params, state, batch, train_step, opt
-    torch.cuda.empty_cache()
-    gpu, cpu = results["cuda"], results["cpu"]
-    want_step = {"flash_attention_fwd": pcfg.n_layers,
-                 "flash_attention_bwd": pcfg.n_layers,
-                 "rmsnorm_fwd": 4 * pcfg.n_layers + 1}
-    say(f"  card train step launches {step_launches} (predicted "
-        f"{want_step}); gradient pass + step: card {gpu['seconds']:.1f}s, "
-        f"CPU {cpu['seconds']:.1f}s")
-    if step_launches != want_step:
-        fail("the card's train step did not launch the kernels as predicted")
-    if gpu["unchanged"]:
-        fail(f"leaves unchanged by the card's step: {gpu['unchanged']}")
-    rel = {k_: abs(gpu[k_] - cpu[k_]) / abs(cpu[k_])
-           for k_ in ("loss", "grad_norm")}
-    worst = max(((p_, float((gpu["grads"][p_] - g).abs().max())
-                  / float(g.abs().max())) for p_, g in cpu["grads"].items()),
-                key=lambda kv: kv[1])
-    say(f"  loss card {gpu['loss']:.6f} CPU {cpu['loss']:.6f} (rel "
-        f"{rel['loss']:.3e}, tol {PARITY_TOL['loss']}); grad norm card "
-        f"{gpu['grad_norm']:.6f} CPU {cpu['grad_norm']:.6f} (rel "
-        f"{rel['grad_norm']:.3e}, tol {PARITY_TOL['grad_norm']}); worst "
-        f"gradient leaf {worst[0]}: max|diff|/max|leaf| {worst[1]:.3e} "
-        f"(tol {PARITY_TOL['grad_leaf']})")
-    if (rel["loss"] > PARITY_TOL["loss"]
-            or rel["grad_norm"] > PARITY_TOL["grad_norm"]
-            or not worst[1] <= PARITY_TOL["grad_leaf"]):
-        fail("the card's train step disagrees with the plain path")
-    del results, gpu, cpu, cpu_params
+    # 14 hd per causal pair and head for the attention products (4
+    # forward, 10 backward)
+    add(phase_train(
+        c, "6/12", "qwen3-1.7b",
+        counts(flash_attention_fwd=L, flash_attention_bwd=L,
+               rmsnorm_fwd=n_norms),
+        14.0 * hd * pairs * H * TRAIN_BATCH * L,
+        "6 N per token plus the attention products"))
+    phase_parity(c, "7/12", "qwen3-1.7b",
+                 counts(flash_attention_fwd=2, flash_attention_bwd=2,
+                        rmsnorm_fwd=4 * 2 + 1), PARITY_TOL)
 
     # --------------------------------------- 7b. checkpoint and resume
-    say("[7b/7] resume: SMOKE config, checkpoint_interval=2; 4 steps straight "
-        "vs 2 steps + a new Session restoring at step 2 for 2 more")
+    say("[7b/12] resume: SMOKE config, checkpoint_interval=2; 4 steps "
+        "straight vs 2 steps + a new Session restoring at step 2 for 2 more")
     kw = dict(global_batch=4, seq_len=128)
     with tempfile.TemporaryDirectory() as dir_a, \
             tempfile.TemporaryDirectory() as dir_b:
@@ -721,9 +917,47 @@ def main() -> int:
     if restored != [2] or ran != [2, 3] or max(rel) > 1e-5:
         fail("the resumed run does not continue the uninterrupted one")
 
+    # ------------------------------------------- 8-11. mamba2-1.3b, SSM
+    mcfg = get_config("mamba2-1.3b", smoke=False)
+    ms_ = mcfg.ssm
+    L = mcfg.n_layers
+    n_norms = 2 * L + 1                       # ln and gated norm, final
+    session, params, launches = phase_prefill(
+        c, "8/12", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
+    add(launches)
+    add(phase_serve(c, "9/12", session, params,
+                    counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
+                    in_fp32=True))
+    del session, params
+    release(torch)
+    heads = ms_.expand * mcfg.d_model // ms_.head_dim
+    # the SSD products, forward and backward (3x), in each layer
+    ssd_step = 3.0 * L * ssd_flops(TRAIN_BATCH, SEQ, heads, ms_.head_dim,
+                                   ms_.n_groups, ms_.d_state, ms_.chunk_size)
+    add(phase_train(c, "10/12", "mamba2-1.3b",
+                    counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms), ssd_step,
+                    "6 N per token plus the SSD products"))
+    phase_parity(c, "11/12", "mamba2-1.3b",
+                 counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1),
+                 SSM_PARITY_TOL)
+
+    # ----------------------------------------- 12. zamba2-1.2b, hybrid
+    zcfg = get_config("zamba2-1.2b", smoke=False)
+    L = zcfg.n_layers
+    n_shared = L // zcfg.shared_attn_every
+    n_norms = 2 * L + 2 * n_shared + 1
+    session, params, launches = phase_prefill(
+        c, "12/12", "zamba2-1.2b",
+        counts(ssd_scan_fwd=L, flash_attention_fwd=n_shared,
+               rmsnorm_fwd=n_norms))
+    add(launches)
+    add(phase_serve(c, "12/12", session, params,
+                    counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
+                    in_fp32=True))
+    del session, params
+    release(torch)
+
     # ------------------------------------------------------------ result
-    main_path = {name: launches[name] + serve_launches[name]
-                 + train_launches[name] for name in report}
     kernels = []
     for name, row in report.items():
         if main_path[name] == 0:
@@ -742,6 +976,7 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

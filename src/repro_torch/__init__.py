@@ -6,13 +6,15 @@ names, so each file has a twin in the JAX package to be held against) and
 imports nothing of it. Its entry points run on the card unless the caller
 passes ``device="cpu"``; with no CUDA device and no explicit CPU request
 they raise. On the card, every attention (forward and, in training,
-backward) and every RMSNorm goes through a hand-written kernel
-(`repro_torch.kernels`); the plain PyTorch versions serve CPU tensors and
-the tests.
+backward), every RMSNorm and every Mamba2 SSD scan goes through a
+hand-written kernel (`repro_torch.kernels`); the plain PyTorch versions
+serve CPU tensors and the tests.
 
-Ported so far, for the dense family: inference — batched prefill
+Ported so far: inference — batched prefill
 (`launch.steps.make_prefill_step`) and the continuous-batching gateway
 (`api.Session.serve`, ``python -m repro_torch serve``) — and training —
 `api.Session.train` over `core.trainer.TransientTrainer` and
-`launch.steps.make_train_step` (``python -m repro_torch train``).
+`launch.steps.make_train_step` (``python -m repro_torch train``) — for
+the dense family (``qwen3-1.7b``) and the SSM family (``mamba2-1.3b``);
+the hybrid family (``zamba2-1.2b``) runs the same entry points.
 """

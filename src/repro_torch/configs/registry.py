@@ -11,13 +11,14 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
 # ids the reference package serves that the port does not carry yet
 _NOT_PORTED = (
     "qwen2-vl-2b", "granite-moe-3b-a800m", "deepseek-v2-lite-16b",
     "hubert-xlarge", "starcoder2-15b", "stablelm-1.6b", "yi-6b",
-    "mamba2-1.3b", "zamba2-1.2b",
 )
 
 ARCH_IDS = tuple(_ARCH_MODULES)

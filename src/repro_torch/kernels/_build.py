@@ -22,7 +22,8 @@ from typing import List, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "rmsnorm.cu")
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "rmsnorm.cu",
+           "ssd_scan.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v"]
@@ -115,6 +116,9 @@ def library() -> ctypes.CDLL:
         lib.repro_rmsnorm_fwd.argtypes = [ptr, ptr, ptr, i64, i32,
                                           ctypes.c_float, i32, ptr]
         lib.repro_rmsnorm_fwd.restype = i32
+        lib.repro_ssd_scan_fwd.argtypes = (
+            [ptr] * 6 + [i32] * 7 + [i64] * 12 + [ptr])
+        lib.repro_ssd_scan_fwd.restype = i32
         _lib = lib
     return _lib
 

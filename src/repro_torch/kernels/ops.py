@@ -13,7 +13,10 @@ reference's `jax.custom_vjp`):
   saved, and the backward kernel (``csrc/flash_attention_bwd.cu``);
 * RMSNorm: the forward kernel, and a backward by recompute — autograd
   over `ref.rmsnorm_ref`, as the reference's `_rn_bwd` takes `jax.vjp` of
-  its oracle (it has no Pallas backward).
+  its oracle (it has no Pallas backward);
+* SSD scan: the forward kernel (``csrc/ssd_scan.cu``), whose inputs are
+  saved, and a backward by recompute — autograd over `ref.ssd_scan_ref`
+  at the same chunk, as the reference's `_ssd_bwd`.
 
 Under ``torch.no_grad()`` (prefill, serving) autograd builds no graph, so
 what the forward saves is dropped when it returns.
@@ -32,9 +35,11 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ss
 
 launches: Dict[str, int] = {"flash_attention_fwd": 0,
-                            "flash_attention_bwd": 0, "rmsnorm_fwd": 0}
+                            "flash_attention_bwd": 0, "rmsnorm_fwd": 0,
+                            "ssd_scan_fwd": 0}
 
 
 def reset_launches() -> None:
@@ -100,3 +105,35 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
     return _RMSNorm.apply(x, scale, eps)
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        y = ss.ssd_scan_fwd(x, dt, A, B, C, chunk)
+        launches["ssd_scan_fwd"] += 1
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            y = ref.ssd_scan_ref(*ins, ctx.chunk)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, dy))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in ins) + (None,)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Mamba2 SSD chunked scan. x:(b,s,h,p) dt:(b,s,h) A:(h,)
+    B,C:(b,s,g,n) -> y:(b,s,h,p) in x's dtype, computed in fp32. The chunk
+    is ``min(chunk, s)``, which must divide s on either device."""
+    chunk = ss.check_shapes(x, dt, A, B, C, chunk)
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    return _SSDScan.apply(x, dt, A, B, C, chunk)

@@ -83,3 +83,14 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The Mamba2 SSD chunked scan in fp32, cast back to x's dtype: the
+    oracle of the SSD kernel, delegating to `models.ssm.ssd` as the
+    reference's `ssd_scan_ref` does. x:(b,s,h,p) dt:(b,s,h) A:(h,)
+    B,C:(b,s,g,n) -> y:(b,s,h,p)."""
+    from repro_torch.models.ssm import ssd  # models import kernels.ops
+    return ssd(x.float(), dt.float(), A.float(), B.float(), C.float(),
+               chunk=chunk).to(x.dtype)

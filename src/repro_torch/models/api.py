@@ -1,6 +1,7 @@
 """Unified model API of the port: init / loss / prefill / decode — the
-twin of the JAX package's `models/api.py` for the dense family. Other
-families raise until their slice is ported (ROADMAP.md, queue 1).
+twin of the JAX package's `models/api.py` for the dense, SSM (Mamba2) and
+hybrid (Zamba2) families. MoE, MLA, audio and VLM raise until their slice
+is ported (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -10,16 +11,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import hybrid, ssm_lm, transformer
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
 
 
 def _module(cfg: ModelConfig):
+    if cfg.family == "ssm":
+        return ssm_lm
+    if cfg.family == "hybrid":
+        return hybrid
     if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None:
         raise NotImplementedError(
-            f"the {cfg.family!r} family (MoE, MLA, SSM, hybrid, audio, VLM) "
-            "is not ported to repro_torch yet (ROADMAP.md, queue 1 items "
-            "7-9)")
+            f"the {cfg.family!r} family (MoE, MLA, audio, VLM) is not "
+            "ported to repro_torch yet (ROADMAP.md, queue 1 items 7 and 9)")
     return transformer
 
 
@@ -50,8 +54,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Mean next-token cross-entropy plus the aux loss (zero for the dense
-    family)."""
+    """Mean next-token cross-entropy plus the aux loss (zero for every
+    family ported so far)."""
     logits, aux = _module(cfg).forward(params, cfg, batch["tokens"])
     return cross_entropy(logits, batch["labels"]) + aux
 
@@ -69,12 +73,13 @@ def prefill(params, cfg: ModelConfig,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device: DeviceLike = None):
-    """Returns (state_values, state_axes) for the decode carrier (the KV
-    cache). The cache is bf16 by default, whatever the model's dtype, as
-    in the reference."""
-    tree = _module(cfg).init_cache(cfg, batch, max_len, dtype,
-                                   resolve_device(device))
-    return L.split_params(tree)
+    """Returns (state_values, state_axes) for the decode carrier (KV
+    cache / SSM state / both). It is bf16 by default, whatever the
+    model's dtype, as in the reference."""
+    mod = _module(cfg)
+    builder = (mod.init_cache if mod is transformer else mod.init_state)
+    return L.split_params(builder(cfg, batch, max_len, dtype,
+                                  resolve_device(device)))
 
 
 def decode_step(params, cfg: ModelConfig, state, tokens, index):

@@ -69,6 +69,13 @@ def _ones(shape, axes, device, n_stack: int = 0) -> Param:
                  (("layers",) if n_stack else ()) + tuple(axes))
 
 
+def _zeros(shape, axes, device, n_stack: int = 0) -> Param:
+    lead = (n_stack,) if n_stack else ()
+    return Param(torch.zeros(lead + tuple(shape), dtype=torch.float32,
+                             device=device),
+                 (("layers",) if n_stack else ()) + tuple(axes))
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

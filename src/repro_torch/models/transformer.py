@@ -59,6 +59,15 @@ def _layers(stacked) -> List[Dict[str, Any]]:
     return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
+def check_remat(cfg: ModelConfig) -> None:
+    """Activation checkpointing is not ported: every family's forward
+    refuses a config that asks for it."""
+    if cfg.remat != "none":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} (activation checkpointing) is not ported "
+            "yet (ROADMAP.md, queue 1 item 5)")
+
+
 def _layer_apply(lp, cfg: ModelConfig, x, positions, cache=None,
                  cache_index=None):
     h, new_cache = L.attention(lp["attn"], cfg,
@@ -81,10 +90,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None):
     """tokens: (B,S) integer. positions: (B,S). Returns logits (B,S,V)
     and the aux loss (zero for the dense family)."""
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} (activation checkpointing) is not ported "
-            "yet (ROADMAP.md, queue 1 item 5)")
+    check_remat(cfg)
     x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
     B, S = x.shape[:2]
     if positions is None:

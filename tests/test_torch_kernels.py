@@ -99,6 +99,9 @@ def test_cpu_tensors_take_the_plain_version():
     q = x.reshape(1, 4, 1, 128)
     assert torch.equal(ops.flash_attention(q, q, q),
                        ref.flash_attention_ref(q, q, q)[0])
+    ssd_in = _ssd_inputs("cpu", 1, 64, 2, 32, 1, 16, torch.float32)
+    assert torch.equal(ops.ssd_scan(*ssd_in, chunk=32),
+                       ref.ssd_scan_ref(*ssd_in, chunk=32))
     assert ops.launches == before
 
 
@@ -153,11 +156,75 @@ def test_cuda_tensors_launch_the_kernels(cuda):
     ops.rmsnorm(x, torch.ones(128, device=cuda))
     q = x.reshape(1, 8, 1, 128)
     ops.flash_attention(q, q, q)
+    ops.ssd_scan(*_ssd_inputs(cuda, 1, 64, 2, 32, 1, 16, torch.float32),
+                 chunk=64)
     torch.cuda.synchronize()
     assert ops.launches == {**before,
                             "flash_attention_fwd":
                                 before["flash_attention_fwd"] + 1,
-                            "rmsnorm_fwd": before["rmsnorm_fwd"] + 1}
+                            "rmsnorm_fwd": before["rmsnorm_fwd"] + 1,
+                            "ssd_scan_fwd": before["ssd_scan_fwd"] + 1}
+
+
+def _ssd_inputs(device, b, s, h, p, g, n, dtype, seed=6):
+    """x, B, C in ``dtype``; dt = softplus(normal) and A = -exp(normal/2)
+    in fp32, as tests/test_kernels.py draws them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    x = normal(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(normal(b, s, h))
+    A = -torch.exp(normal(h) * 0.5)
+    return x, dt, A, normal(b, s, g, n).to(dtype), normal(b, s, g, n).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,dtype", [
+    (1, 2048, 64, 64, 1, 128, 256, "bfloat16"),  # mamba2-1.3b prefill
+    (2, 2048, 64, 64, 1, 128, 256, "bfloat16"),  # mamba2-1.3b train
+    (1, 2048, 64, 64, 1, 64, 256, "bfloat16"),   # zamba2-1.2b
+    (1, 256, 8, 64, 2, 32, 128, "bfloat16"),     # grouped B/C
+    (1, 32, 4, 32, 1, 16, 32, "bfloat16"),       # short: one ragged tile
+    (2, 128, 4, 32, 2, 16, 64, "float32"),
+    (1, 200, 2, 64, 1, 128, 200, "float32"),     # ragged last tile
+])
+def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk,
+                                          dtype):
+    """fp32: 5e-4 of max |plain| (tests/test_kernels.py); bf16: 2e-2 of
+    max |plain| and 1e-2 in Frobenius norm, as the flash backward is held
+    (y is rounded to bf16 once, from fp32 sums)."""
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, A, B, C = _ssd_inputs(cuda, b, s, h, p, g, n, getattr(torch, dtype))
+    got = ss.ssd_scan_fwd(x, dt, A, B, C, chunk)
+    want = ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert bool(torch.isfinite(got).all())
+    err = (got.float() - want.float())
+    assert float(err.abs().max()) <= (5e-4 if dtype == "float32" else 2e-2) \
+        * float(want.float().abs().max())
+    if dtype == "bfloat16":
+        assert float(err.norm() / want.float().norm()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_ssd_backward_on_card_is_autograd_over_the_plain_version(cuda):
+    """`ops.ssd_scan` launches the kernel once and its backward equals
+    autograd over `ref.ssd_scan_ref`, for every input."""
+    ins = _ssd_inputs(cuda, 1, 256, 4, 32, 2, 16, torch.float32)
+    a = [t.detach().requires_grad_() for t in ins]
+    w = [t.detach().requires_grad_() for t in ins]
+    before = ops.launches["ssd_scan_fwd"]
+    y = ops.ssd_scan(*a, 64)
+    assert ops.launches["ssd_scan_fwd"] == before + 1
+    dy = torch.randn_like(y)
+    got = torch.autograd.grad(y, a, dy)
+    want = torch.autograd.grad(ref.ssd_scan_ref(*w, 64), w, dy)
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape
+        np.testing.assert_allclose(_np(g_), _np(w_), rtol=1e-4,
+                                   atol=1e-4 * float(w_.abs().max()))
 
 
 # ------------------------------------------------------------- the build
@@ -193,3 +260,7 @@ def test_kernel_launchers_refuse_cpu_tensors():
     q = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q, q, q)
+    from repro_torch.kernels import ssd_scan as ss
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssd_scan_fwd(*_ssd_inputs("cpu", 1, 64, 2, 32, 1, 16,
+                                     torch.float32), chunk=64)

@@ -1,0 +1,451 @@
+"""The port's Mamba2 SSD path (`repro_torch.models.ssm`, `ssm_lm`, `hybrid`
+and `kernels.ref.ssd_scan_ref`) held against the JAX package's, on the CPU
+at the mamba2-1.3b and zamba2-1.2b SMOKE configs.
+
+Both packages get the same weights (the reference's `api.init`, crossed
+with `repro_torch.bridge`) and the same numpy inputs. Tolerances, each
+with its reason:
+
+* `ssd_scan_ref` vs the Pallas kernel (interpret mode) and
+  `models.ssm.ssd`: 5e-4 after scaling by max |want|, as
+  tests/test_kernels.py holds the Pallas scan;
+* `ssd` with an initial and a final state, `mamba2_block` prefill and
+  decode, fp32: 1e-5 (the same function; sums run in another order);
+* `ssd_decode_step` with a bf16 state and `_causal_conv` in bf16: one
+  bf16 ulp of the reference's value (both round the same fp32 value, up
+  to an fp32 rounding met at a bf16 boundary);
+* logits: 5e-5 of max |logit| in fp32; in bf16, as close to the fp32
+  logits as the reference's own bf16 logits are (each test gives the
+  spread measured over seeds);
+* `loss_fn` gradients: 3e-4 of each leaf's max |value|; the 5-step AdamW
+  trajectory: 1e-4 relative; greedy streams: identical.
+
+JAX is imported inside the fixture that needs it.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import bridge
+from repro_torch.api.serving import generate
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import RunConfig
+from repro_torch.configs import get_config as torch_config
+from repro_torch.data.pipeline import ShardedLoader, SyntheticTokenSource
+from repro_torch.kernels import ops, ref
+from repro_torch.launch import steps as tsteps
+from repro_torch.models import api as tapi
+from repro_torch.models import ssm as TS
+from repro_torch.serving.engine import _reset_by_batch_axis
+from repro_torch.tree import flatten, tree_map
+
+ARCHS = ["mamba2-1.3b", "zamba2-1.2b"]
+# the zamba2 SMOKE config (4 layers, shared block every 2) has no tail;
+# 5 layers leave one Mamba2 layer after the last group
+CASES = [("mamba2-1.3b", None), ("zamba2-1.2b", None), ("zamba2-1.2b", 5)]
+CASE_IDS = ["mamba2", "zamba2", "zamba2-tail"]
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The JAX package, on the CPU."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from repro.api.serving import generate
+    from repro.checkpoint import Checkpointer as JCheckpointer
+    from repro.configs import RunConfig as JRunConfig
+    from repro.configs import get_config
+    from repro.kernels import ops as jops
+    from repro.launch import steps as jsteps
+    from repro.models import api as japi
+    from repro.models import layers as JL
+    from repro.models import ssm as JS
+    return types.SimpleNamespace(
+        jax=jax, jnp=jnp, generate=generate, Checkpointer=JCheckpointer,
+        RunConfig=JRunConfig, get_config=get_config, ops=jops,
+        steps=jsteps, api=japi, L=JL, S=JS)
+
+
+def _configs(J, arch, n_layers=None, dtype="float32"):
+    jcfg = J.get_config(arch, smoke=True).with_(dtype=dtype)
+    tcfg = torch_config(arch, smoke=True).with_(dtype=dtype)
+    if n_layers is not None:
+        jcfg, tcfg = (c.with_(n_layers=n_layers) for c in (jcfg, tcfg))
+    return jcfg, tcfg
+
+
+def _weights(J, jcfg):
+    vals, _ = J.api.init(jcfg, J.jax.random.PRNGKey(0))
+    return vals, _tensors(J, vals)
+
+
+def _tensors(J, jtree):
+    return bridge.from_numpy(J.jax.tree.map(np.asarray, jtree), "cpu")
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().cpu().numpy()
+    return np.asarray(np.asarray(t, dtype=np.float32))
+
+
+def _rel(got, want) -> float:
+    got, want = _np(got), _np(want)
+    return float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-12))
+
+
+def _assert_within_bf16_ulp(got, want):
+    got, want = _np(got), _np(want)
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    assert np.all(np.abs(got - want) <= ulp)
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _ssd_inputs(seed, b, s, h, p, g, n):
+    """numpy inputs shaped as tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    x = _normal(rng, (b, s, h, p))
+    dt = np.log1p(np.exp(_normal(rng, (b, s, h))))      # softplus
+    A = -np.exp(_normal(rng, (h,)) * 0.5)
+    B = _normal(rng, (b, s, g, n))
+    C = _normal(rng, (b, s, g, n))
+    return x, dt.astype(np.float32), A.astype(np.float32), B, C
+
+
+def _tokens(seed, shape, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(
+        np.int32)
+
+
+# ------------------------------------------------------------ the scan
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 128, 2, 32, 1, 16, 32),
+    (2, 128, 4, 32, 2, 16, 64),     # grouped B/C
+    (1, 256, 2, 64, 1, 32, 128),
+    (1, 256, 2, 64, 1, 128, 256),   # mamba2-1.3b's p, n and chunk
+])
+def test_ssd_scan_ref_matches_pallas_and_ssd(J, b, s, h, p, g, n, chunk):
+    arrs = _ssd_inputs(0, b, s, h, p, g, n)
+    jargs = [J.jnp.asarray(a) for a in arrs]
+    got = ref.ssd_scan_ref(*(torch.from_numpy(a) for a in arrs), chunk)
+    assert got.shape == (b, s, h, p) and got.dtype == torch.float32
+    for want in (J.ops.ssd_scan(*jargs, chunk),
+                 J.S.ssd(*jargs, chunk=chunk)):
+        scale = float(np.max(np.abs(np.asarray(want)))) + 1e-6
+        np.testing.assert_allclose(_np(got) / scale,
+                                   np.asarray(want) / scale, atol=5e-4)
+
+
+def test_ssd_carries_initial_and_final_state(J):
+    b, s, h, p, g, n = 2, 64, 4, 16, 2, 8
+    arrs = _ssd_inputs(1, b, s, h, p, g, n)
+    init = _normal(np.random.default_rng(2), (b, h, n, p))
+    want_y, want_st = J.S.ssd(*(J.jnp.asarray(a) for a in arrs), chunk=16,
+                              initial_state=J.jnp.asarray(init),
+                              return_state=True)
+    got_y, got_st = TS.ssd(*(torch.from_numpy(a) for a in arrs), chunk=16,
+                           initial_state=torch.from_numpy(init),
+                           return_state=True)
+    assert got_st.shape == (b, h, n, p)
+    assert _rel(got_y, want_y) < 1e-5 and _rel(got_st, want_st) < 1e-5
+
+
+def test_ssd_decode_step_bf16_state_matches_jax(J):
+    """A bf16 state and bf16 x/B/C, fp32 dt and A: the update runs in fp32
+    on both sides and rounds once."""
+    jnp = J.jnp
+    b, h, p, g, n = 3, 4, 16, 2, 8
+    rng = np.random.default_rng(3)
+    state, x = _normal(rng, (b, h, n, p)), _normal(rng, (b, h, p))
+    dt = np.log1p(np.exp(_normal(rng, (b, h))))
+    A = -np.exp(_normal(rng, (h,)) * 0.5)
+    B, C = _normal(rng, (b, g, n)), _normal(rng, (b, g, n))
+    bf = [state, x, B, C]
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in bf]
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in bf]
+    want_st, want_y = J.S.ssd_decode_step(
+        jb[0], jb[1], jnp.asarray(dt, jnp.float32), jnp.asarray(A, jnp.float32),
+        jb[2], jb[3])
+    got_st, got_y = TS.ssd_decode_step(
+        tb[0], tb[1], torch.from_numpy(dt).float(), torch.from_numpy(A).float(),
+        tb[2], tb[3])
+    assert got_st.dtype == got_y.dtype == torch.bfloat16
+    _assert_within_bf16_ulp(got_st, want_st.astype(jnp.float32))
+    _assert_within_bf16_ulp(got_y, want_y.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_causal_conv_bf16_matches_jax(J, with_state):
+    jnp = J.jnp
+    rng = np.random.default_rng(4)
+    x, w, bias = (_normal(rng, (2, 7, 24)), _normal(rng, (4, 24)),
+                  _normal(rng, (24,)))
+    st = _normal(rng, (2, 3, 24)) if with_state else None
+    jarg = [jnp.asarray(a).astype(jnp.bfloat16) for a in (x, w, bias)]
+    targ = [torch.from_numpy(a).to(torch.bfloat16) for a in (x, w, bias)]
+    want, want_st = J.S._causal_conv(
+        *jarg, None if st is None else jnp.asarray(st).astype(jnp.bfloat16))
+    got, got_st = TS._causal_conv(
+        *targ, None if st is None else torch.from_numpy(st).to(torch.bfloat16))
+    assert got.dtype == got_st.dtype == torch.bfloat16
+    _assert_within_bf16_ulp(got, want.astype(jnp.float32))
+    np.testing.assert_array_equal(_np(got_st), np.asarray(
+        want_st.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mamba2_block_prefill_and_decode_match_jax(J, arch):
+    jcfg, tcfg = _configs(J, arch)
+    vals, _ = J.L.split_params(J.S.init_mamba2(J.jax.random.PRNGKey(5),
+                                               jcfg))
+    tparams = _tensors(J, vals)
+    rng = np.random.default_rng(6)
+    x = _normal(rng, (2, 64, jcfg.d_model))
+    want, _ = J.S.mamba2_block(vals, jcfg, J.jnp.asarray(x))
+    got, none = TS.mamba2_block(tparams, tcfg, torch.from_numpy(x))
+    assert none is None and _rel(got, want) < 1e-5
+    conv_shape, ssm_shape = TS.mamba2_state_shape(tcfg, 2)
+    conv, ssm = _normal(rng, conv_shape), _normal(rng, ssm_shape)
+    want, (wc, ws) = J.S.mamba2_block(
+        vals, jcfg, J.jnp.asarray(x[:, :1]),
+        state=(J.jnp.asarray(conv), J.jnp.asarray(ssm)))
+    got, (gc, gs) = TS.mamba2_block(
+        tparams, tcfg, torch.from_numpy(x[:, :1]),
+        state=(torch.from_numpy(conv), torch.from_numpy(ssm)))
+    for g_, w_ in ((got, want), (gc, wc), (gs, ws)):
+        assert _rel(g_, w_) < 1e-5
+
+
+def test_chunk_must_divide_the_sequence():
+    x, dt, A, B, C = (torch.from_numpy(a)
+                      for a in _ssd_inputs(7, 1, 48, 2, 16, 1, 8))
+    with pytest.raises(ValueError, match="s % chunk"):
+        ops.ssd_scan(x, dt, A, B, C, 32)
+    with pytest.raises(ValueError, match="s % chunk"):
+        TS.ssd(x, dt, A, B, C, 32)
+    # chunk = min(chunk, s): a chunk longer than the sequence is one chunk
+    assert ops.ssd_scan(x, dt, A, B, C, 64).shape == x.shape
+
+
+# ------------------------------------------------------------- the models
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_matches_reference_tree(J, arch):
+    jcfg, tcfg = _configs(J, arch, n_layers=5)
+    jvals, jaxes = J.api.init(jcfg, J.jax.random.PRNGKey(0))
+    tvals, taxes = tapi.init(tcfg, torch.Generator().manual_seed(3),
+                             device="cpu")
+    jflat = dict(flatten(J.jax.tree.map(np.asarray, jvals)))
+    tflat = dict(flatten(tvals))
+    assert sorted(jflat) == sorted(tflat)
+    for path, arr in jflat.items():
+        assert tuple(tflat[path].shape) == arr.shape, path
+        assert tflat[path].dtype == torch.float32, path
+    assert dict(flatten(taxes)) == dict(flatten(jaxes))
+    a_log = [v for k, v in tflat.items() if k.endswith("A_log")]
+    want = [v for k, v in jflat.items() if k.endswith("A_log")]
+    for got, w in zip(a_log, want):
+        np.testing.assert_allclose(_np(got), w, rtol=1e-6)
+    jst, jst_axes = J.api.init_decode_state(jcfg, 3, 8)
+    tst, tst_axes = tapi.init_decode_state(tcfg, 3, 8, device="cpu")
+    assert dict(flatten(tst_axes)) == dict(flatten(jst_axes))
+    for path, arr in flatten(J.jax.tree.map(np.asarray, jst)):
+        t = dict(flatten(tst))[path]
+        assert tuple(t.shape) == arr.shape and t.dtype == torch.bfloat16
+
+
+def _prefill_pair(J, arch, n_layers, dtype, seed=0):
+    """Logits of the reference and of the port's prefill step, on one set
+    of weights (drawn in fp32) and one batch; returns (jax fp32, jax,
+    port)."""
+    jcfg, tcfg = _configs(J, arch, n_layers, dtype)
+    jvals, tvals = _weights(J, jcfg.with_(dtype="float32"))
+    toks = _tokens(seed, (2, 64), jcfg.vocab_size)
+    jtoks = {"tokens": J.jnp.asarray(toks)}
+    f32 = J.api.prefill(jvals, jcfg.with_(dtype="float32"), jtoks)
+    want = J.api.prefill(jvals, jcfg, jtoks)
+    got = tsteps.make_prefill_step(tcfg)(tvals,
+                                         {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (2, 64, jcfg.vocab_size)
+    assert got.dtype == getattr(torch, dtype)
+    return _np(f32), _np(want.astype(J.jnp.float32)), _np(got)
+
+
+@pytest.mark.parametrize("arch,n_layers", CASES, ids=CASE_IDS)
+def test_prefill_logits_match_jax(J, arch, n_layers):
+    """fp32: 5e-5 of max |logit|. Over four seeds the distance was
+    2.8e-6 to 6.7e-6 for mamba2 and zamba2 SMOKE, but up to 1.8e-5 for
+    zamba2 with a tail: the gated RMSNorm scales up the order-of-sum
+    differences of small rows, as it does bf16 rounding below."""
+    _, want, got = _prefill_pair(J, arch, n_layers, "float32")
+    assert _rel(got, want) < 5e-5
+
+
+def _frob(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("arch,n_layers", CASES, ids=CASE_IDS)
+def test_bf16_prefill_is_as_close_to_fp32_as_the_references(J, arch,
+                                                            n_layers):
+    """bf16 logits: the port's distance from the fp32 logits (Frobenius,
+    relative) is at most 1.25x the reference's own bf16 distance, and the
+    two bf16 results are within 5e-2 of each other.
+
+    The 2e-2 of max |logit| that holds qwen3 in bf16 does not hold here
+    between any two bf16 implementations: the gated RMSNorm scales up rows
+    of y * silu(z) that are small, with their bf16 rounding, so the
+    reference's own bf16 logits lie 4-13% of max |logit| from its fp32
+    logits on these SMOKE configs (1.5-1.8% in norm for mamba2, 3.4-4.0%
+    for zamba2). Measured over three seeds: the port's norm distance was
+    0.95-1.12x the reference's, and 1.3-3.8% from the reference's bf16."""
+    f32, want, got = _prefill_pair(J, arch, n_layers, "bfloat16")
+    assert _frob(got, f32) <= 1.25 * _frob(want, f32)
+    assert _frob(got, want) < 5e-2
+
+
+@pytest.mark.parametrize("arch,n_layers", CASES, ids=CASE_IDS)
+def test_decode_steps_match_jax(J, arch, n_layers):
+    """8 decode steps against an fp32 state on both sides, per-row
+    positions as the gateway gives them; and the port's decode agrees
+    with its own prefill."""
+    jcfg, tcfg = _configs(J, arch, n_layers)
+    jvals, tvals = _weights(J, jcfg)
+    toks = _tokens(1, (2, 8), jcfg.vocab_size)
+    jst, _ = J.api.init_decode_state(jcfg, 2, 8, dtype=J.jnp.float32)
+    tst, _ = tapi.init_decode_state(tcfg, 2, 8, dtype=torch.float32,
+                                    device="cpu")
+    serve = tsteps.make_serve_step(tcfg)
+    full = tapi.prefill(tvals, tcfg, {"tokens": torch.from_numpy(toks)})
+    for i in range(8):
+        want, jst = J.api.decode_step(jvals, jcfg, jst,
+                                      J.jnp.asarray(toks[:, i]),
+                                      J.jnp.full((2,), i, J.jnp.int32))
+        got, tst = serve(tvals, tst, torch.from_numpy(toks[:, i]),
+                         torch.full((2,), i))
+        assert _rel(got, want) < 1e-5, i
+        assert _rel(got, full[:, i]) < 1e-4, i
+
+
+@pytest.mark.parametrize("arch,n_layers", CASES, ids=CASE_IDS)
+def test_loss_fn_grads_match_jax(J, arch, n_layers):
+    jcfg, tcfg = _configs(J, arch, n_layers)
+    jvals, tvals = _weights(J, jcfg)
+    batch = _batches(tcfg, 1)[0]
+    jloss, jgrads = J.jax.value_and_grad(
+        lambda p: J.api.loss_fn(p, jcfg, {k: J.jnp.asarray(v)
+                                          for k, v in batch.items()}))(jvals)
+    params = tree_map(lambda t: t.requires_grad_(), tvals)
+    loss = tapi.loss_fn(params, tcfg, {k: torch.from_numpy(v)
+                                       for k, v in batch.items()})
+    loss.backward()
+    assert abs(float(loss.detach()) - float(jloss)) < 1e-5 * abs(float(jloss))
+    want = dict(flatten(J.jax.tree.map(np.asarray, jgrads)))
+    got = dict(flatten(tree_map(lambda p: p.grad, params)))
+    assert sorted(got) == sorted(want)
+    for path in want:
+        assert _rel(got[path], want[path]) < 3e-4, path
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_greedy_streams_match_jax(J, arch):
+    jcfg, tcfg = _configs(J, arch)
+    jvals, tvals = _weights(J, jcfg)
+    prompt = _tokens(2, (3, 6), jcfg.vocab_size)
+    want = J.generate(jcfg, jvals, batch=3, prompt_len=6, tokens=5,
+                      prompt=prompt)
+    got = generate(tcfg, tvals, batch=3, prompt_len=6, tokens=5,
+                   prompt=prompt, device="cpu")
+    assert got.generated.shape == (3, 5)
+    np.testing.assert_array_equal(np.asarray(got.generated),
+                                  np.asarray(want.generated))
+
+
+def test_reset_zeroes_exactly_the_joining_slot_of_the_hybrid_state():
+    """The grouped leaves carry ``batch`` at dim 2, the tail's and the KV
+    caches' at dim 1: the reset finds each by name."""
+    cfg = torch_config("zamba2-1.2b", smoke=True).with_(n_layers=5)
+    state, axes = tapi.init_decode_state(cfg, 3, 8, device="cpu")
+    state = tree_map(lambda t: t.fill_(1.0), state)
+    _reset_by_batch_axis(state, axes, torch.tensor([1]))
+    ax = dict(flatten(axes))
+    assert ax["groups/conv"].index("batch") == 2
+    assert ax["tail/ssm"].index("batch") == 1
+    for path, leaf in flatten(state):
+        dim = ax[path].index("batch")
+        for slot in range(3):
+            want = 0.0 if slot == 1 else 1.0
+            assert torch.all(leaf.select(dim, slot) == want), (path, slot)
+
+
+# -------------------------------------------------------------- training
+def _batches(cfg, n, global_batch=2, seq=64):
+    loader = ShardedLoader(SyntheticTokenSource(cfg.vocab_size, seq, seed=0),
+                           global_batch)
+    return [loader.next_global(1) for _ in range(n)]
+
+
+def _run_kw(**kw):
+    return dict(optimizer="adamw", lr=1e-3, weight_decay=0.1, warmup_steps=2,
+                total_steps=10, grad_clip=1.0, **kw)
+
+
+def test_train_trajectory_matches_jax(J):
+    """5 AdamW steps of `make_train_step` on mamba2-1.3b SMOKE, identical
+    batches: loss and grad norm to 1e-4 relative at every step."""
+    jcfg, tcfg = _configs(J, "mamba2-1.3b")
+    jvals, tparams = _weights(J, jcfg)
+    jstep, jopt = J.steps.make_train_step(jcfg, J.RunConfig(**_run_kw()))
+    jstep = J.jax.jit(jstep)
+    jstate = J.steps.TrainState(jvals, jopt.init(jvals),
+                                J.jnp.zeros((), J.jnp.int32), ())
+    tstep, topt = tsteps.make_train_step(tcfg, RunConfig(**_run_kw()))
+    tstate = tsteps.TrainState(tparams, topt.init(tparams),
+                               torch.zeros((), dtype=torch.int32))
+    for i, batch in enumerate(_batches(tcfg, 5)):
+        jstate, jm = jstep(jstate, {k: J.jnp.asarray(v)
+                                    for k, v in batch.items()})
+        tstate, tm = tstep(tstate, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
+        for key in ("loss", "grad_norm"):
+            assert abs(float(tm[key]) - float(jm[key])) <= 1e-4 * abs(
+                float(jm[key])), (i, key)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_checkpoint_crosses_packages(J, tmp_path, writer):
+    """A mamba2 checkpoint one package writes after a step restores bit
+    for bit in the other, under the reference's keys."""
+    jcfg, tcfg = _configs(J, "mamba2-1.3b")
+    jvals, tparams = _weights(J, jcfg)
+    jstep, jopt = J.steps.make_train_step(jcfg, J.RunConfig(**_run_kw()))
+    tstep, topt = tsteps.make_train_step(tcfg, RunConfig(**_run_kw()))
+    jstate = J.steps.TrainState(jvals, jopt.init(jvals),
+                                J.jnp.zeros((), J.jnp.int32), ())
+    tstate = tsteps.TrainState(tparams, topt.init(tparams),
+                               torch.zeros((), dtype=torch.int32))
+    batch = _batches(tcfg, 1)[0]
+    if writer == "jax":
+        jstate, _ = J.jax.jit(jstep)(jstate, {k: J.jnp.asarray(v)
+                                              for k, v in batch.items()})
+        J.Checkpointer(str(tmp_path)).save(1, jstate)
+        tstate, step = Checkpointer(str(tmp_path)).restore(tstate)
+    else:
+        tstate, _ = tstep(tstate, {k: torch.from_numpy(v)
+                                   for k, v in batch.items()})
+        Checkpointer(str(tmp_path)).save(1, tstate)
+        jstate, step = J.Checkpointer(str(tmp_path)).restore(jstate)
+    assert step == 1 and int(tstate.step) == int(jstate.step) == 1
+    import json
+    index = json.load(open(tmp_path / "step_1" / "index.json"))
+    assert {".params/layers/mixer/in_proj", ".params/layers/mixer/A_log",
+            ".opt/m/layers/ln/scale"} <= set(index)
+    tflat = dict(flatten(tstate.params))
+    for path, want in flatten(J.jax.tree.map(np.asarray, jstate.params)):
+        np.testing.assert_array_equal(tflat[path].numpy(), want)
