@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on failure:
 3. kernels: hold each kernel against its plain PyTorch version on the card
             (flash-attention forward: out and lse; flash-attention
             backward: dq, dk, dv; RMSNorm; the SSD scan at the mamba2 and
-            zamba2 shapes) and time the kernel, the plain version and,
+            zamba2 shapes; event select, bit for bit, at the fleet
+            engine's widths) and time the kernel, the plain version and,
             where one exists, one PyTorch library call; the host cost of
             RMSNorm's dispatch through its autograd Function; the SSD
             backward (autograd over the plain version);
@@ -41,11 +42,20 @@ Phases, each of which exits non-zero on failure:
             RMSNorm launches a step) and parity, as in 4-7;
 12. zamba2-1.2b (Mamba2 + one shared attention block), full width:
             prefill (38 SSD, 6 flash, 89 RMSNorm launches) and serve (89
-            RMSNorm launches a decode step), as in 4-5.
+            RMSNorm launches a decode step), as in 4-5;
+13. fleet: the §VI-A fleet simulator's device engine on the
+            `regional_wave` chaos scenario at 65,536 trajectories, built
+            as the reference's `benchmarks/mc_speed.py:bench_jit_engine`
+            builds it: `Session.simulate(samples=65536, engine="jit")`
+            (one event-select launch per round) and warm `run_jit`
+            calls, held against the port's NumPy `run_batched` on the
+            same draws (counts and `finished` exact, times to rtol 1e-9);
+            then the six configurations of tests/test_engine_parity.py's
+            corpus at 1,024 trajectories on the card, held the same way.
 
 Then one JSON line per the kernels (launches summed over the prefill,
-serve and train phases, each counted from 0), the card line again, and
-the result line
+serve, train and fleet phases, each counted from 0), the card line again,
+and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the repository beside it, it fails
 before printing any result.
@@ -122,7 +132,28 @@ SSD_CASES = [(1, 2048, 64, 64, 1, 128, 256, "bfloat16"),
 SEQ, N_TOKENS, N_BATCH, PROMPT_LEN = 2048, 16, 4, 32
 TRAIN_STEPS, TRAIN_BATCH = 4, 2
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
-           "ssd_scan_fwd")
+           "ssd_scan_fwd", "event_select_fwd")
+# H100 SXM float64 rate outside the tensor cores (NVIDIA's data sheet); the
+# event select does one comparison per element
+PEAK_F64_FLOPS = 34e12
+# the fleet engines' contract (tests/test_engine_parity.py:_assert_parity):
+# counts exact, times and costs to rtol 1e-9, accruals to 1e-6
+FLEET_N, FLEET_CORPUS_N = 65536, 1024
+FLEET_TOL = {"total_time_s": (1e-9, 0.0), "monetary_cost": (1e-9, 1e-9),
+             "checkpoint_time_s": (1e-6, 1e-6), "lost_steps": (1e-6, 1e-6),
+             "paused_s": (1e-6, 1e-6), "restore_delay_s": (1e-6, 1e-6)}
+# tests/test_engine_parity.py's CORPUS: (provider, region, gpu, workers,
+# handover, replace, compression, i_c, horizon_h, start_h, seed)
+FLEET_CORPUS = [
+    ("gcp", "us-central1", "v100", 4, True, True, "none", 4000, 48.0, 0.0, 0),
+    ("gcp", "europe-west1", "k80", 8, False, True, "none", 1000, 32.0, 0.0,
+     3),
+    ("gcp", "us-west1", "k80", 2, True, False, "none", 4000, 100.0, 7.0, 5),
+    ("aws", "us-east-1", "v100", 6, False, True, "none", 1000, 80.0, 9.0, 2),
+    ("azure", "southeastasia", "v100", 4, False, True, "int8", 4000, 60.0,
+     13.5, 1),
+    ("azure", "southcentralus", "v100", 1, True, True, "none", 4000, 12.0,
+     23.75, 7)]
 
 
 def fail(msg: str) -> None:
@@ -161,11 +192,12 @@ def time_ms(torch, fn, warmup: int = 5, iters: int = 25) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def device_profile(torch, fn, n: int):
+def device_profile(torch, fn, n: int, count=None):
     """Run ``fn`` n times under torch.profiler. Returns the device time per
     call summed over kernels and copies (ms) and that time by kernel name,
-    largest first. The profiler slows the host, so host wall times are
-    taken without it."""
+    largest first; a dict given as ``count`` receives the number of
+    device events per call under "events". The profiler slows the host,
+    so host wall times are taken without it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -174,11 +206,14 @@ def device_profile(torch, fn, n: int):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, events = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            events += 1
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / n)
+    if count is not None:
+        count["events"] = events / n
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return sum(by_name.values()), ranked
 
@@ -563,6 +598,187 @@ def phase_parity(c, tag: str, arch: str, want_step: dict, tol: dict):
         fail("the card's train step disagrees with the plain path")
 
 
+def fleet_raw(results):
+    """`SimResult`s as the arrays `run_batched(raw=True)` returns."""
+    import numpy as np
+    return {key: np.array([getattr(r, key) for r in results])
+            for key in ("total_time_s", "steps_done", "revocations",
+                        "replacements", "checkpoint_time_s", "lost_steps",
+                        "monetary_cost", "paused_s", "restore_delay_s")}
+
+
+def fleet_parity(name: str, got: dict, want: dict, total_steps: int) -> dict:
+    """Hold the device engine's per-trajectory stats against the batched
+    engine's under the fleet contract; fail on any breach. Returns the
+    largest relative error of each continuous stat."""
+    import numpy as np
+    for key in ("revocations", "replacements"):
+        bad = np.flatnonzero(np.asarray(got[key]) != np.asarray(want[key]))
+        if bad.size:
+            j = int(bad[0])
+            fail(f"{name}: {key} differ in {bad.size} trajectories (first: "
+                 f"trajectory {j}, {got[key][j]} vs {want[key][j]})")
+    fin_g = int((got["steps_done"] >= total_steps).sum())
+    fin_w = int((want["steps_done"] >= total_steps).sum())
+    if fin_g != fin_w or np.abs(got["steps_done"]
+                                - want["steps_done"]).max() > 1:
+        fail(f"{name}: finished {fin_g} vs {fin_w}, or steps_done off by "
+             "more than 1")
+    errs = {}
+    for key, (rtol, atol) in FLEET_TOL.items():
+        g, w = np.asarray(got[key], float), np.asarray(want[key], float)
+        diff = np.abs(g - w)
+        if not (diff <= atol + rtol * np.abs(w)).all():
+            j = int(np.argmax(diff - rtol * np.abs(w)))
+            fail(f"{name}: {key} out of tolerance at trajectory {j}: "
+                 f"{g[j]!r} vs {w[j]!r}")
+        errs[key] = float((diff / np.maximum(np.abs(w), 1e-300)).max())
+    return dict(errs, finished=fin_g)
+
+
+def phase_fleet(c, tag: str) -> dict:
+    """The fleet simulator's device engine on the card: regional_wave at
+    FLEET_N trajectories through `Session.simulate` (the counted main
+    path), warm `run_jit` timings and busy share, then the corpus. Returns
+    the launches of the counted run."""
+    import numpy as np
+    from repro_torch.chaos.injectors import keyed_uniforms
+    from repro_torch.chaos.scenarios import get_scenario
+    from repro_torch.core.transient.fleet_batched import (FleetDraws,
+                                                          run_batched)
+    from repro_torch.core.transient.fleet_jit import run_jit
+    torch = c.torch
+    sc = get_scenario("regional_wave")
+    ses = c.Session.from_arch("qwen3-1.7b", smoke=True)
+    fleet_kw = dict(n_workers=sc.n_workers, gpu=sc.gpu, region=sc.region,
+                    steps=sc.total_steps, seed=0, handover=sc.handover,
+                    provider=sc.provider)
+    sim, n_steps = ses._fleet_sim(**fleet_kw)
+    sim.chaos = sc.timeline(sim._roster, seed=0)
+    n = FLEET_N
+    args = (n_steps, n, sc.max_hours, 0.0)
+    say(f"[{tag}] fleet: regional_wave ({sc.description}), {sc.n_workers} x "
+        f"{sc.gpu} in {sc.region} on {sc.provider}, {n_steps} steps, "
+        f"{sc.max_hours:.0f} h horizon, {n} trajectories; device engine vs "
+        "the port's batched engine on the same draws")
+    t0 = time.monotonic()
+    draws = FleetDraws(sim, n, 0.0)
+    t1 = time.monotonic()
+    want = run_batched(sim, *args, draws=draws, raw=True)
+    batched_s = time.monotonic() - t1
+    say(f"  FleetDraws {t1 - t0:.3f}s; run_batched(raw=True) on the host "
+        f"{batched_s:.3f}s (once), {n / batched_s:.0f} trajectories/s")
+
+    # the counted main path: the entry point a user calls
+    torch.cuda.synchronize()
+    c.ops.reset_launches()
+    t0 = time.monotonic()
+    ens = ses.simulate(samples=n, engine="jit", chaos=sim.chaos,
+                       max_hours=sc.max_hours, **fleet_kw)
+    torch.cuda.synchronize()
+    cold_s = time.monotonic() - t0
+    main_launches = launches = dict(c.ops.launches)
+    say(f"  Session.simulate(samples={n}, engine='jit') on "
+        f"{ses.device}: {cold_s:.3f}s cold (pools built, {len(ens)} "
+        f"SimResults); launches {launches}")
+    if launches["event_select_fwd"] == 0 or any(
+            v for k, v in launches.items() if k != "event_select_fwd"):
+        fail("the device engine did not launch event_select alone")
+    errs = fleet_parity("Session.simulate vs run_batched",
+                        fleet_raw(ens.results), want, n_steps)
+    st = ens.stats
+    say(f"  held: counts exact, finished {errs['finished']}/{n}; max "
+        "relative error " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items() if k != "finished"))
+    say(f"  ensemble: time p50 {st.time_p50_s:.1f}s p90 "
+        f"{st.time_p90_s:.1f}s, cost mean ${st.cost_mean:.4f}, "
+        f"revocations mean {st.revocations_mean:.3f} p90 "
+        f"{st.revocations_p90:.1f}, replacements mean "
+        f"{st.replacements_mean:.3f}")
+
+    # warm engine core, as bench_jit_engine times it
+    stats = {}
+    got = run_jit(sim, *args, draws=draws, raw=True, stats=stats,
+                  device=ses.device)
+    torch.cuda.synchronize()
+    fleet_parity("run_jit(raw=True) vs run_batched", got, want, n_steps)
+    walls = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        run_jit(sim, *args, draws=draws, raw=True, device=ses.device)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    warm_s = min(walls)
+    say(f"  run_jit(raw=True) warm: best of 3 {warm_s:.4f}s ({walls}), "
+        f"{n / warm_s:.0f} trajectories/s; {stats['rounds']} rounds, "
+        f"{stats['entries']} loop entries, {stats['doublings']} pool "
+        f"doublings, {stats['levels']} levels; batched/device "
+        f"{batched_s / warm_s:.2f}x (host NumPy vs card, not a claim)")
+    prof_count = {}
+    say_profile("one warm run_jit", warm_s * 1e3, *device_profile(
+        torch, lambda: run_jit(sim, *args, draws=draws, raw=True,
+                               device=ses.device), 1, count=prof_count),
+                top=8)
+    say(f"  {prof_count['events']:.0f} device kernels and copies in the "
+        f"run, {prof_count['events'] / stats['rounds']:.0f} per round; "
+        f"{warm_s * 1e3 / stats['rounds']:.2f} ms of wall per round")
+
+    # the keyed join draws the pools need, per key and vectorized
+    keys = np.stack([np.zeros(2000, np.int64), np.full(2000, 0xC4A15),
+                     np.zeros(2000, np.int64), np.arange(2000),
+                     np.arange(2000) % 4, np.ones(2000, np.int64)], 1)
+    t0 = time.monotonic()
+    for k in keys:
+        np.random.default_rng(np.random.SeedSequence(
+            tuple(int(v) for v in k))).random()
+    per_key_us = (time.monotonic() - t0) / len(keys) * 1e6
+    big = np.stack([np.zeros(4 * n, np.int64), np.full(4 * n, 0xC4A15),
+                    np.zeros(4 * n, np.int64), np.arange(4 * n) // 4,
+                    np.arange(4 * n) % 4, np.ones(4 * n, np.int64)], 1)
+    t0 = time.monotonic()
+    keyed_uniforms(big)
+    vec_s = time.monotonic() - t0
+    say(f"  keyed join draws on the host: one Generator per key "
+        f"{per_key_us:.1f} µs each ({len(keys)} keys), keyed_uniforms "
+        f"{vec_s:.4f} s for the {4 * n} keys of one pool level "
+        f"({vec_s / (4 * n) * 1e6:.3f} µs each)")
+
+    # the corpus on CUDA's f64 math: aws/azure laws, graceful
+    # checkpoints, replace=False
+    corpus_launches = 0
+    for (prov, region, gpu, nw, ho, rep, comp, i_c, mh, sh,
+         seed) in FLEET_CORPUS:
+        workers = [c.SimWorker(i, gpu, region, 4.56) for i in range(nw)]
+        csim = c.FleetSim(
+            workers, model_gflops=1.54, model_bytes=1.87e6,
+            step_speed_of=lambda g: 4.56, checkpoint_interval_steps=i_c,
+            checkpoint_time_s=3.84, n_ps=1, seed=seed, handover=ho,
+            replace=rep, price_of={gpu: 0.74}, provider=prov,
+            grad_compression=comp)
+        cdraws = FleetDraws(csim, FLEET_CORPUS_N, sh)
+        cargs = (250_000, FLEET_CORPUS_N, mh, sh)
+        cwant = run_batched(csim, *cargs, draws=cdraws, raw=True)
+        before = c.ops.launches["event_select_fwd"]
+        cstats = {}
+        cgot = run_jit(csim, *cargs, draws=cdraws, raw=True, stats=cstats,
+                       device=ses.device)
+        torch.cuda.synchronize()
+        corpus_launches += c.ops.launches["event_select_fwd"] - before
+        cerr = fleet_parity(f"corpus {prov}/{region}/{gpu}", cgot, cwant,
+                            250_000)
+        say(f"  corpus {prov} {region} {nw}x{gpu} handover={ho} "
+            f"replace={rep} {comp}: held ({cstats['rounds']} rounds, "
+            f"revocations {int(np.sum(cgot['revocations']))}, finished "
+            f"{cerr['finished']}/{FLEET_CORPUS_N}, time rel err "
+            f"{cerr['total_time_s']:.1e})")
+    say(f"  event_select launches: {main_launches['event_select_fwd']} in "
+        f"the counted Session.simulate run, {corpus_launches} in the corpus "
+        "runs (not counted)")
+    del ses, sim, draws, ens
+    release(torch)
+    return main_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -576,7 +792,9 @@ def main() -> int:
     from repro_torch.api import Session
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.data.pipeline import ShardedLoader, SyntheticTokenSource
+    from repro_torch.core.transient.fleet import FleetSim, SimWorker
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import event_select as es
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ss
@@ -598,21 +816,21 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
-    say(f"[1/12] card: {card}")
+    say(f"[1/13] card: {card}")
     say(f"      torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count={torch.cuda.device_count()}")
 
     # --------------------------------------------------------- 2. build
     t0 = time.monotonic()
     _build.library()
-    say(f"[2/12] build: {_build.library_path().name} in "
+    say(f"[2/13] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
     for line in _build.last_build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             say(f"      {line.strip()}")
 
     # ------------------------------------------------ 3. kernels vs plain
-    say("[3/12] kernels vs plain versions")
+    say("[3/13] kernels vs plain versions")
     cfg = get_config("qwen3-1.7b", smoke=False)
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     report = {}
@@ -860,13 +1078,79 @@ def main() -> int:
     del ins, y, dy
     torch.cuda.synchronize()
 
+    es_errs = []
+
+    def es_matrix(n, m, dtype, seed):
+        """Event times in [0, 1e6) with 30% masked, from a seeded draw on
+        the card, and the edge rows where n allows: all masked, a full
+        tie, -inf twice, a NaN."""
+        gen.manual_seed(seed)
+        ev = torch.rand((n, m), generator=gen, device=dev,
+                        dtype=torch.float64) * 1e6
+        ev[torch.rand((n, m), generator=gen, device=dev) < 0.3] = math.inf
+        if n >= 4:
+            ev[0] = math.inf
+            ev[1] = 7.0
+            ev[2, 1] = ev[2, m - 1] = -math.inf
+            ev[3, 1] = math.nan
+        return ev.to(dtype)
+
+    for n, m in ((FLEET_N, 8), (4096, 8), (1, 2), (257, 17)):
+        for dtype in (torch.float64, torch.float32):
+            ev = es_matrix(n, m, dtype, 8)
+            t, i = es.event_select_fwd(ev)
+            want_t, want_i = ref.event_select_ref(ev)
+            torch.cuda.synchronize()
+            bits = torch.int64 if dtype == torch.float64 else torch.int32
+            same = (torch.equal(i, want_i)
+                    and torch.equal(t.view(bits), want_t.view(bits)))
+            fin = torch.isfinite(want_t)
+            err = float((t[fin] - want_t[fin]).abs().max()) if bool(
+                fin.any()) else 0.0
+            es_errs.append(err)
+            say(f"  event_select ({n}, {m}) {str(dtype)[6:]}: "
+                f"{'bit for bit' if same else 'DIFFERS'} (t and i; "
+                f"{int((~fin).sum())} rows inf/NaN)")
+            if not same:
+                fail("event_select disagrees with its plain version")
+    # the engine's first-round shape: every row active, 4 revocation
+    # timers (some inf) and 4 disarmed join timers
+    ev = es_matrix(FLEET_N, 8, torch.float64, 9)
+    ev[:, 4:] = math.inf
+    ms = time_ms(torch, lambda: es.event_select_fwd(ev), warmup=20,
+                 iters=200)
+    plain_ms = time_ms(torch, lambda: ref.event_select_ref(ev), warmup=5,
+                       iters=50)
+    lib_ms = time_ms(torch, lambda: torch.min(ev, dim=1), warmup=20,
+                     iters=200)
+    n_es, m_es = ev.shape
+    nbytes = 8 * n_es * m_es + 8 * n_es + 4 * n_es     # ev; t; i
+    ops_es = float(n_es * m_es)                         # comparisons
+    bound = max(nbytes / HBM_BYTES_PER_S, ops_es / PEAK_F64_FLOPS)
+    report["event_select_fwd"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/event_select.cu",
+        replaces="src/repro/kernels/event_select.py:35",
+        max_abs_err=max(es_errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound * 1e3,
+        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                  >= ops_es / PEAK_F64_FLOPS else "operations"),
+        library_ms=lib_ms)
+    _, ranked = device_profile(torch, lambda: es.event_select_fwd(ev), 50)
+    say(f"  event_select_fwd @ ({n_es}, {m_es}) float64: kernel {ms:.4f} ms "
+        f"per call ({kernel_ms(ranked, 'event_select_kernel'):.4f} ms on "
+        f"the device), plain {plain_ms:.4f} ms, torch.min {lib_ms:.4f} ms, "
+        f"bound {bound * 1e3:.5f} ms ({nbytes / 1e6:.2f} MB / 3.35 TB/s)")
+    del ev
+    torch.cuda.synchronize()
+
     c = types.SimpleNamespace(
         torch=torch, dev=dev, gen=gen, ops=ops, Session=Session,
         get_config=get_config, RunConfig=RunConfig, flatten=flatten,
         tree_map=tree_map, model_api=model_api, steps=st,
         make_prefill_step=make_prefill_step, GatewayEngine=GatewayEngine,
         ShardedLoader=ShardedLoader,
-        SyntheticTokenSource=SyntheticTokenSource)
+        SyntheticTokenSource=SyntheticTokenSource, FleetSim=FleetSim,
+        SimWorker=SimWorker)
     main_path = counts()
 
     def add(launches):
@@ -877,10 +1161,10 @@ def main() -> int:
     L = cfg.n_layers
     n_norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
     session, params, launches = phase_prefill(
-        c, "4/12", "qwen3-1.7b",
+        c, "4/13", "qwen3-1.7b",
         counts(flash_attention_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "5/12", session, params,
+    add(phase_serve(c, "5/13", session, params,
                     counts(rmsnorm_fwd=n_norms), SERVE_VS_PREFILL_TOL))
     del session, params
     release(torch)
@@ -888,17 +1172,17 @@ def main() -> int:
     # 14 hd per causal pair and head for the attention products (4
     # forward, 10 backward)
     add(phase_train(
-        c, "6/12", "qwen3-1.7b",
+        c, "6/13", "qwen3-1.7b",
         counts(flash_attention_fwd=L, flash_attention_bwd=L,
                rmsnorm_fwd=n_norms),
         14.0 * hd * pairs * H * TRAIN_BATCH * L,
         "6 N per token plus the attention products"))
-    phase_parity(c, "7/12", "qwen3-1.7b",
+    phase_parity(c, "7/13", "qwen3-1.7b",
                  counts(flash_attention_fwd=2, flash_attention_bwd=2,
                         rmsnorm_fwd=4 * 2 + 1), PARITY_TOL)
 
     # --------------------------------------- 7b. checkpoint and resume
-    say("[7b/12] resume: SMOKE config, checkpoint_interval=2; 4 steps "
+    say("[7b/13] resume: SMOKE config, checkpoint_interval=2; 4 steps "
         "straight vs 2 steps + a new Session restoring at step 2 for 2 more")
     kw = dict(global_batch=4, seq_len=128)
     with tempfile.TemporaryDirectory() as dir_a, \
@@ -923,9 +1207,9 @@ def main() -> int:
     L = mcfg.n_layers
     n_norms = 2 * L + 1                       # ln and gated norm, final
     session, params, launches = phase_prefill(
-        c, "8/12", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
+        c, "8/13", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "9/12", session, params,
+    add(phase_serve(c, "9/13", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
@@ -934,10 +1218,10 @@ def main() -> int:
     # the SSD products, forward and backward (3x), in each layer
     ssd_step = 3.0 * L * ssd_flops(TRAIN_BATCH, SEQ, heads, ms_.head_dim,
                                    ms_.n_groups, ms_.d_state, ms_.chunk_size)
-    add(phase_train(c, "10/12", "mamba2-1.3b",
+    add(phase_train(c, "10/13", "mamba2-1.3b",
                     counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms), ssd_step,
                     "6 N per token plus the SSD products"))
-    phase_parity(c, "11/12", "mamba2-1.3b",
+    phase_parity(c, "11/13", "mamba2-1.3b",
                  counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1),
                  SSM_PARITY_TOL)
 
@@ -947,15 +1231,18 @@ def main() -> int:
     n_shared = L // zcfg.shared_attn_every
     n_norms = 2 * L + 2 * n_shared + 1
     session, params, launches = phase_prefill(
-        c, "12/12", "zamba2-1.2b",
+        c, "12/13", "zamba2-1.2b",
         counts(ssd_scan_fwd=L, flash_attention_fwd=n_shared,
                rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "12/12", session, params,
+    add(phase_serve(c, "12/13", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
     release(torch)
+
+    # --------------------------------------- 13. the fleet device engine
+    add(phase_fleet(c, "13/13"))
 
     # ------------------------------------------------------------ result
     kernels = []

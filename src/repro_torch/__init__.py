@@ -6,9 +6,10 @@ names, so each file has a twin in the JAX package to be held against) and
 imports nothing of it. Its entry points run on the card unless the caller
 passes ``device="cpu"``; with no CUDA device and no explicit CPU request
 they raise. On the card, every attention (forward and, in training,
-backward), every RMSNorm and every Mamba2 SSD scan goes through a
-hand-written kernel (`repro_torch.kernels`); the plain PyTorch versions
-serve CPU tensors and the tests.
+backward), every RMSNorm, every Mamba2 SSD scan and every next-event
+select of the fleet engine goes through a hand-written kernel
+(`repro_torch.kernels`); the plain PyTorch versions serve CPU tensors and
+the tests.
 
 Ported so far: inference — batched prefill
 (`launch.steps.make_prefill_step`) and the continuous-batching gateway
@@ -16,5 +17,8 @@ Ported so far: inference — batched prefill
 `api.Session.train` over `core.trainer.TransientTrainer` and
 `launch.steps.make_train_step` (``python -m repro_torch train``) — for
 the dense family (``qwen3-1.7b``) and the SSM family (``mamba2-1.3b``);
-the hybrid family (``zamba2-1.2b``) runs the same entry points.
+the hybrid family (``zamba2-1.2b``) runs the same entry points — and the
+§VI-A fleet simulator (`api.Session.simulate`, ``python -m repro_torch
+simulate``) with its event, batched and device (``engine="jit"``)
+engines, the providers, chaos scenarios and resilience policies it reads.
 """

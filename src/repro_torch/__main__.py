@@ -4,6 +4,7 @@
     python -m repro_torch train --arch qwen3-1.7b --full --steps 4 \
         --global-batch 2 --seq 2048
     python -m repro_torch serve --arch qwen3-1.7b --full --tokens 16
+    python -m repro_torch simulate --samples 65536 --engine jit
 
 Runs on the CUDA card unless ``--device cpu`` is given.
 """
@@ -32,6 +33,22 @@ def build_parser():
     cli.add_arch_arg(s)
     cli.add_scale_args(s)
     cli.add_serve_args(s)
+    q = sub.add_parser("simulate", help="discrete-event fleet simulation "
+                                        "(§VI-A); --engine jit on the card")
+    cli.add_arch_arg(q)
+    cli.add_scale_args(q)
+    cli.add_fleet_args(q)
+    cli.add_resilience_args(q)
+    q.add_argument("--steps", type=int, default=2000)
+    q.add_argument("--checkpoint-interval", type=int, default=200)
+    q.add_argument("--samples", type=int, default=1,
+                   help="trajectories; >1 reports the p50/p90/mean "
+                        "ensemble summary (SimStats)")
+    q.add_argument("--engine", default="batched",
+                   choices=("batched", "event", "jit"),
+                   help="ensemble stepper: the lockstep NumPy engine "
+                        "(default), the per-trajectory event loop, or the "
+                        "device engine (on --device)")
     return p
 
 
@@ -75,10 +92,45 @@ def _cmd_serve(args) -> int:
     return 0
 
 
+def _cmd_simulate(args) -> int:
+    session = cli.session_from_args(args)
+    res = session.simulate(n_workers=args.workers, gpu=args.gpu,
+                           region=args.region, steps=args.steps,
+                           checkpoint_interval=args.checkpoint_interval,
+                           n_ps=args.n_ps, seed=args.seed,
+                           provider=args.provider, samples=args.samples,
+                           engine=args.engine)
+    if args.samples > 1:
+        st = res.stats
+        print(f"arch={session.arch} {args.workers}x{args.gpu} on "
+              f"{res.provider}/{res.region}: {st.n} trajectories "
+              f"(engine={args.engine}, device={session.device})")
+        if st.finished < st.n:
+            print(f"WARNING: only {st.finished}/{st.n} trajectories "
+                  f"finished all {args.steps} steps (censored at "
+                  f"max_hours or fully revoked) — the time/cost summary "
+                  f"understates the true distribution")
+        print(f"time  p50={st.time_p50_s:.0f}s p90={st.time_p90_s:.0f}s "
+              f"mean={st.time_mean_s:.0f}±{st.time_stderr_s:.0f}s")
+        print(f"cost  p50=${st.cost_p50:.2f} p90=${st.cost_p90:.2f} "
+              f"mean=${st.cost_mean:.2f}±{st.cost_stderr:.2f}")
+        print(f"revocations p50={st.revocations_p50:.1f} "
+              f"p90={st.revocations_p90:.1f} "
+              f"mean={st.revocations_mean:.2f}")
+        return 0
+    print(f"arch={session.arch} {args.workers}x{args.gpu} on "
+          f"{res.provider}/{res.region}: "
+          f"{res.steps_done} steps in {res.total_time_s:.0f}s  "
+          f"revocations={res.revocations} replacements={res.replacements} "
+          f"ckpt={res.checkpoint_time_s:.0f}s cost=${res.monetary_cost:.2f}")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        return {"train": _cmd_train, "serve": _cmd_serve}[args.cmd](args)
+        return {"train": _cmd_train, "serve": _cmd_serve,
+                "simulate": _cmd_simulate}[args.cmd](args)
     except NoCudaDevice as e:
         # no CUDA device and no --device cpu: a clean error, exit 2
         print(f"error: {e}", file=sys.stderr)

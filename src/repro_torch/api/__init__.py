@@ -4,6 +4,7 @@
     s = Session.from_arch("qwen3-1.7b", smoke=False)
     s.train(steps=4, global_batch=2, seq_len=2048)
     s.serve(tokens=16)
+    s.simulate(samples=65536, engine="jit")
 """
 from repro_torch.api.events import Event, EventBus  # noqa: F401
 from repro_torch.api.serving import ServeReport, generate  # noqa: F401

@@ -1,10 +1,11 @@
 """`Session` — the programmatic surface of the port, for the verbs ported
-so far: `describe`, `train` and `serve` (the twin of the JAX package's
-`api/session.py`; plan/simulate/predict come with later slices).
+so far: `describe`, `train`, `serve` and `simulate` (the twin of the JAX
+package's `api/session.py`; plan/predict/chaos come with later slices).
 
     s = Session.from_arch("qwen3-1.7b", smoke=False)   # on the card
     rep = s.train(steps=4, global_batch=2, seq_len=2048)
     out = s.serve(tokens=16)                           # the trained weights
+    ens = s.simulate(samples=65536, engine="jit")      # §VI-A fleet sim
 
 A Session runs on the card unless it is built with ``device="cpu"``; with
 no CUDA device and no explicit CPU request, building one raises.
@@ -13,18 +14,26 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.api.events import EventBus
 from repro_torch.api.serving import ServeReport, generate
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.configs.base import ModelConfig, default_checkpoint_dir
+from repro_torch.core.perf_model.speed_model import calibrate_generators
 from repro_torch.core.trainer import (MembershipEvent, TrainReport,
                                       TransientTrainer)
+from repro_torch.core.transient.fleet import FleetSim, SimWorker
 from repro_torch.data.pipeline import ShardedLoader, SyntheticTokenSource
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.elastic import Member
 from repro_torch.models import api as model_api
+from repro_torch.providers import FleetProvider, get_provider
+
+# Sequential-checkpoint write bandwidth assumed when no measurement is
+# available yet (§IV: T_c scales ~linearly with checkpoint size).
+_CKPT_BYTES_PER_S = 200e6
+_CKPT_BASE_S = 0.25
 
 
 class Session:
@@ -33,15 +42,20 @@ class Session:
 
     def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
                  *, arch: Optional[str] = None,
-                 bus: Optional[EventBus] = None, device: DeviceLike = None):
+                 bus: Optional[EventBus] = None, device: DeviceLike = None,
+                 provider: object = "gcp"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.run = run or RunConfig()
         self.arch = arch or cfg.name
         self.bus = bus or EventBus()
+        # session-default transient market; simulate takes a per-call
+        # `provider=` override (name or FleetProvider instance)
+        self.provider: FleetProvider = get_provider(provider)
         self.trainer: Optional[TransientTrainer] = None
         self.last_report: Optional[TrainReport] = None
         self._params = None
+        self._n_tensors = None      # lazily counted parameter-tree leaves
 
     # ------------------------------------------------------------ creation
     @classmethod
@@ -49,15 +63,17 @@ class Session:
                   run: Optional[RunConfig] = None,
                   device: DeviceLike = None,
                   bus: Optional[EventBus] = None,
+                  provider: object = "gcp",
                   **run_overrides) -> "Session":
         """Resolve a registered architecture id (see `repro_torch.configs`);
         ids the reference serves but the port does not yet raise
-        `NotImplementedError`. `run_overrides` are `RunConfig` fields."""
+        `NotImplementedError`. `run_overrides` are `RunConfig` fields;
+        `provider` sets the session's default transient market."""
         run = run or RunConfig()
         if run_overrides:
             run = dataclasses.replace(run, **run_overrides)
         return cls(get_config(arch, smoke=smoke), run, arch=arch, bus=bus,
-                   device=device)
+                   device=device, provider=provider)
 
     @property
     def params(self):
@@ -77,6 +93,74 @@ class Session:
             "active_params": cfg.active_param_count(),
             "device": str(self.device),
         }
+
+    def model_gflops(self, seq_len: Optional[int] = None,
+                     per_worker_batch: int = 8) -> float:
+        """C_m for the §III predictors: forward GFLOPs per worker step."""
+        seq = seq_len or 64
+        return self.cfg.flops_per_token(seq) * seq * per_worker_batch / 1e9
+
+    def model_bytes(self) -> float:
+        """Checkpoint/update payload (fp32 params)."""
+        return 4.0 * self.cfg.param_count()
+
+    def n_tensors(self) -> int:
+        """Variable count of the parameter tree — the per-tensor RPC term
+        of the PS capacity law (Table III), which compression does NOT
+        shrink. Counted from a draw under `FakeTensorMode`, which builds
+        the tree's shapes and allocates no weights."""
+        if self._n_tensors is None:
+            import torch
+            from torch._subclasses.fake_tensor import FakeTensorMode
+
+            from repro_torch.tree import flatten
+            with FakeTensorMode():
+                values, _ = model_api.init(self.cfg, torch.Generator())
+                self._n_tensors = sum(1 for _ in flatten(values))
+        return self._n_tensors
+
+    # ------------------------------------------------------ §III speed
+    def _generators(self):
+        """The Table I step-time generators, as the reference's calibration
+        store holds them before any recalibration (the same memoized
+        `calibrate_generators()` instances)."""
+        return calibrate_generators()
+
+    def _provider(self, provider: Optional[object]) -> FleetProvider:
+        """Resolve a per-call override against the session default."""
+        return self.provider if provider is None else get_provider(provider)
+
+    def _check_fleet(self, gpu: str, region: Optional[str] = None,
+                     provider: Optional[FleetProvider] = None) -> None:
+        """The speed models only cover the measured GPUs, and each provider
+        only sells certain (region, gpu) cells — fail with the options."""
+        gens = self._generators()
+        if gpu not in gens:
+            raise ValueError(f"no calibrated speed model for {gpu!r}; "
+                             f"available: {sorted(gens)}")
+        prov = provider or self.provider
+        if region is None:
+            prov.check_gpu_offered(gpu)
+        else:
+            prov.check_offered(region, gpu)
+
+    def predict_worker_speed(self, gpu: str = "v100",
+                             seq_len: Optional[int] = None,
+                             per_worker_batch: int = 8,
+                             provider: Optional[object] = None) -> float:
+        """Solo steps/s on `gpu` from the calibrated §III step-time model.
+
+        The speed model is hardware-only; `provider` only scopes the
+        does-this-market-sell-this-GPU validation."""
+        self._check_fleet(gpu, provider=self._provider(provider))
+        c_m = self.model_gflops(seq_len, per_worker_batch)
+        return 1.0 / self._generators()[gpu].step_time(c_m)
+
+    def checkpoint_seconds(self) -> float:
+        """T_c estimate (§IV linear law) until a measured value exists."""
+        if self.trainer is not None and self.trainer.ckpt.last_save_seconds:
+            return self.trainer.ckpt.last_save_seconds
+        return _CKPT_BASE_S + self.model_bytes() / _CKPT_BYTES_PER_S
 
     # ----------------------------------------------------- elastic train
     def train(self, steps: Optional[int] = None, *, global_batch: int = 8,
@@ -157,3 +241,96 @@ class Session:
                       decode_ms_p99=round(report.decode_ms_p99, 4),
                       device=report.device)
         return report
+
+    # ------------------------------------------------- §VI-A fleet sim
+    def simulate(self, n_workers: int = 4, gpu: str = "v100",
+                 region: Optional[str] = None,
+                 counts: Optional[Dict[str, int]] = None,
+                 steps: Optional[int] = None,
+                 checkpoint_interval: Optional[int] = None,
+                 n_ps: int = 1, seed: int = 0, replace: bool = True,
+                 handover: bool = True,
+                 max_hours: float = 48.0,
+                 provider: Optional[object] = None,
+                 start_hour: float = 0.0,
+                 samples: int = 1,
+                 engine: str = "batched",
+                 chaos: object = None,
+                 resilience: Optional[object] = None):
+        """Discrete-event simulation on a transient cluster.
+
+        Either a homogeneous (`n_workers` x `gpu`) cluster or an explicit
+        heterogeneous `counts` mapping gpu -> count. `provider` picks the
+        transient market; `region=None` uses that market's default region;
+        `start_hour` is the local launch hour (diurnal lifetime laws).
+
+        `samples=1` runs one trajectory (the event loop) and returns a
+        `SimResult`. `samples>1` runs a `FleetSim.run_many` ensemble and
+        returns a `FleetEnsemble` whose `.stats` is the p50/p90/mean
+        `SimStats` summary; `engine` picks the trajectory stepper —
+        "batched" (default) the lockstep NumPy engine, "event" the
+        per-trajectory discrete-event loop, "jit" the device engine on the
+        session's device (the card unless the session was built with
+        ``device="cpu"``).
+
+        The simulated PS capacity uses this model's variable count and
+        `run.grad_compression`. `chaos` (a `repro_torch.chaos.FaultTimeline`)
+        scripts faults into the simulated fleet; `resilience` (a
+        `repro_torch.resilience.ResilienceConfig`; default: the session's
+        `run.resilience`) arms quorum degradation and restore-retry stalls
+        in the simulated fleet — identically on every engine.
+        """
+        sim, n_steps = self._fleet_sim(
+            n_workers=n_workers, gpu=gpu, region=region, counts=counts,
+            steps=steps, checkpoint_interval=checkpoint_interval, n_ps=n_ps,
+            seed=seed, replace=replace, handover=handover,
+            provider=provider, chaos=chaos, resilience=resilience)
+        if samples > 1:
+            return sim.run_many(n_steps, samples, max_hours=max_hours,
+                                start_hour=start_hour, engine=engine,
+                                device=self.device)
+        return sim.run(n_steps, max_hours=max_hours, start_hour=start_hour)
+
+    def _fleet_sim(self, *, n_workers: int = 4, gpu: str = "v100",
+                   region: Optional[str] = None,
+                   counts: Optional[Dict[str, int]] = None,
+                   steps: Optional[int] = None,
+                   checkpoint_interval: Optional[int] = None,
+                   n_ps: int = 1, seed: int = 0, replace: bool = True,
+                   handover: bool = True,
+                   provider: Optional[object] = None,
+                   chaos: object = None,
+                   resilience: Optional[object] = None
+                   ) -> Tuple[FleetSim, int]:
+        """Construct the configured `FleetSim` (and the resolved step
+        budget) without running it — `simulate()`'s builder."""
+        prov = self._provider(provider)
+        region = region or prov.default_region
+        counts = counts or {gpu: n_workers}
+        for g in counts:
+            self._check_fleet(g, region, prov)
+        n_steps = self.run.total_steps if steps is None else steps
+        i_c = (self.run.checkpoint_interval if checkpoint_interval is None
+               else checkpoint_interval)
+        t_c = self.checkpoint_seconds()
+        if i_c == 0:  # no checkpointing: one interval past the run's end
+            i_c, t_c = n_steps + 1, 0.0
+        c_m = self.model_gflops()
+        gens = self._generators()
+        workers, wid = [], 0
+        for g, n in counts.items():
+            for _ in range(n):
+                workers.append(SimWorker(wid, g, region,
+                                         1.0 / gens[g].step_time(c_m)))
+                wid += 1
+        sim = FleetSim(
+            workers, model_gflops=c_m, model_bytes=self.model_bytes(),
+            step_speed_of=lambda g: 1.0 / gens[g].step_time(c_m),
+            checkpoint_interval_steps=i_c, checkpoint_time_s=t_c, n_ps=n_ps,
+            seed=seed, replace=replace, handover=handover,
+            price_of={g: prov.price(g) for g in counts}, provider=prov,
+            n_tensors=self.n_tensors(),
+            grad_compression=self.run.grad_compression, chaos=chaos,
+            resilience=(self.run.resilience if resilience is None
+                        else resilience))
+        return sim, n_steps

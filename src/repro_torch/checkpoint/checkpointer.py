@@ -185,6 +185,8 @@ class Checkpointer:
         os.makedirs(root, exist_ok=True)
         self.lease = WriterLease(root, holder, clock=clock)
         self.keep = keep
+        #: seconds the last save took (`Session.checkpoint_seconds`' T_c)
+        self.last_save_seconds: Optional[float] = None
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree, metadata: Optional[dict] = None
@@ -196,7 +198,10 @@ class Checkpointer:
         if not self.lease.held_by_me():
             if not self.lease.try_acquire():
                 return None  # someone else holds the writer role
-        return self._write(step, _flatten(tree), metadata or {})
+        t0 = time.monotonic()
+        sizes = self._write(step, _flatten(tree), metadata or {})
+        self.last_save_seconds = time.monotonic() - t0
+        return sizes
 
     def _write(self, step: int, flat: Dict[str, Tuple[np.ndarray, str]],
                metadata: dict) -> CheckpointSizes:

@@ -1,0 +1,61 @@
+"""§III-C/D — the cluster-speed law with the parameter-server ceiling: the
+port's copy of the JAX package's `core/perf_model/cluster_model.py`, cut
+to what the fleet simulator needs (`PSBottleneckModel`, `WorkerSpec`,
+`cluster_speed`). Eq (4)/(5) and `HeterogeneousPredictor` come with
+`Session.predict`, the calibration-protocol methods with the
+recalibration item (ROADMAP.md, queue 1 item 5).
+
+Cluster speed sp = Σ_i sp_i, capped by PS capacity (Fig 4, Fig 12). Serving
+one update costs max(network, RPC/apply) time —
+    service = max(2*model_bytes/ps_bw, rpc_per_tensor * n_tensors) / n_ps
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+from repro_torch.dist.compression import compression_ratio
+
+PS_NET_BYTES_PER_S = 1.25e9   # 10 Gbps GCP NIC per parameter server
+PS_RPC_PER_TENSOR_S = 2.52e-4  # per-variable RPC+apply cost, calibrated so
+# ResNet-32 (97 tensors) saturates one PS at ~41 updates/s (Table III)
+
+
+@dataclasses.dataclass
+class WorkerSpec:
+    gpu: str
+    speed: float                # steps/s for the target model (solo)
+
+
+@dataclasses.dataclass
+class PSBottleneckModel:
+    model_bytes: float
+    n_ps: int = 1
+    ps_bw: float = PS_NET_BYTES_PER_S
+    n_tensors: int = 0
+    rpc_per_tensor: float = PS_RPC_PER_TENSOR_S
+    #: gradient-compression scheme on the wire (§VI-B): shrinks the network
+    #: term by `compression_ratio` but NOT the per-tensor RPC term — a
+    #: compressed push still issues one RPC per variable
+    compression: str = "none"
+
+    def service_time_s(self) -> float:
+        net = (2.0 * self.model_bytes * compression_ratio(self.compression)
+               / self.ps_bw)
+        rpc = self.rpc_per_tensor * self.n_tensors
+        return max(net, rpc) / self.n_ps
+
+    def capacity_steps_per_s(self) -> float:
+        return 1.0 / self.service_time_s()
+
+    def cluster_speed(self, workers: Sequence[WorkerSpec]) -> float:
+        raw = sum(w.speed for w in workers)
+        return min(raw, self.capacity_steps_per_s())
+
+
+def cluster_speed(workers: Sequence[WorkerSpec],
+                  ps: Optional[PSBottleneckModel] = None) -> float:
+    """sp = Σ sp_i (§VI-A), PS-capped when a PS model is provided."""
+    if ps is None:
+        return sum(w.speed for w in workers)
+    return ps.cluster_speed(workers)

@@ -23,7 +23,7 @@ from typing import List, Optional
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "rmsnorm.cu",
-           "ssd_scan.cu")
+           "ssd_scan.cu", "event_select.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v"]
@@ -119,6 +119,9 @@ def library() -> ctypes.CDLL:
         lib.repro_ssd_scan_fwd.argtypes = (
             [ptr] * 6 + [i32] * 7 + [i64] * 12 + [ptr])
         lib.repro_ssd_scan_fwd.restype = i32
+        lib.repro_event_select_fwd.argtypes = [ptr, ptr, ptr, i64, i32, i32,
+                                               ptr]
+        lib.repro_event_select_fwd.restype = i32
         _lib = lib
     return _lib
 

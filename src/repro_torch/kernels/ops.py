@@ -16,7 +16,9 @@ reference's `jax.custom_vjp`):
   its oracle (it has no Pallas backward);
 * SSD scan: the forward kernel (``csrc/ssd_scan.cu``), whose inputs are
   saved, and a backward by recompute — autograd over `ref.ssd_scan_ref`
-  at the same chunk, as the reference's `_ssd_bwd`.
+  at the same chunk, as the reference's `_ssd_bwd`;
+* event select (the fleet engine's next event): the kernel
+  (``csrc/event_select.cu``), not differentiable, so no Function.
 
 Under ``torch.no_grad()`` (prefill, serving) autograd builds no graph, so
 what the forward saves is dropped when it returns.
@@ -28,10 +30,11 @@ path went through the kernels (``chip_smoke.py`` zeroes the counts with
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import event_select as es
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
@@ -39,7 +42,7 @@ from repro_torch.kernels import ssd_scan as ss
 
 launches: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd": 0, "rmsnorm_fwd": 0,
-                            "ssd_scan_fwd": 0}
+                            "ssd_scan_fwd": 0, "event_select_fwd": 0}
 
 
 def reset_launches() -> None:
@@ -137,3 +140,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
     return _SSDScan.apply(x, dt, A, B, C, chunk)
+
+
+def event_select(ev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(n, m) candidate-event times, inf = masked -> (min (n,), argmin (n,)
+    int32), ties broken to the lowest column; all-inf rows (inf, 0)."""
+    if ev.device.type == "cpu":
+        return ref.event_select_ref(ev)
+    t, i = es.event_select_fwd(ev)
+    launches["event_select_fwd"] += 1
+    return t, i

@@ -94,3 +94,19 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     from repro_torch.models.ssm import ssd  # models import kernels.ops
     return ssd(x.float(), dt.float(), A.float(), B.float(), C.float(),
                chunk=chunk).to(x.dtype)
+
+
+def event_select_ref(ev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row masked min and argmin of an (n, m) candidate-event matrix
+    (inf = masked), ties broken to the lowest column: ``(t (n,), i (n,)
+    int32)``. All-inf rows give (inf, 0). A row holding a NaN gives
+    (NaN, 0), as the Pallas kernel does; ``t`` is then the row's first
+    NaN, so the CUDA kernel matches this bit for bit."""
+    isnan = torch.isnan(ev)
+    nan_row = isnan.any(dim=1)
+    arg = torch.argmin(ev, dim=1)             # first index of the minimum
+    first_nan = torch.argmax(isnan.to(torch.uint8), dim=1)
+    pick = torch.where(nan_row, first_nan, arg)
+    t = torch.gather(ev, 1, pick[:, None])[:, 0]
+    i = torch.where(nan_row, torch.zeros_like(arg), arg)
+    return t, i.to(torch.int32)

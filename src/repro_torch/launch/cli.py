@@ -1,5 +1,6 @@
 """Shared argparse wiring for the port's entry points (the twin of the
-JAX package's `launch/cli.py`, for the flags of the ported verbs)."""
+JAX package's `launch/cli.py`, for the flags of the ported verbs:
+train, serve and simulate)."""
 from __future__ import annotations
 
 import argparse
@@ -55,6 +56,75 @@ def add_serve_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--temperature", type=float, default=0.0)
 
 
+def add_fleet_args(p: argparse.ArgumentParser,
+                   workers_default: int = 4) -> None:
+    from repro_torch.providers import available_providers
+
+    # only the paper's measured GPUs have calibrated speed/revocation
+    # models
+    p.add_argument("--gpu", default="v100", choices=("k80", "p100", "v100"))
+    p.add_argument("--provider", default="gcp",
+                   choices=available_providers(),
+                   help="transient market to simulate on")
+    p.add_argument("--region", default=None,
+                   help="one region (default: the provider's default "
+                        "region)")
+    p.add_argument("--workers", type=int, default=workers_default)
+    p.add_argument("--n-ps", type=int, default=1)
+
+
+def add_resilience_args(p: argparse.ArgumentParser) -> None:
+    """Recovery-policy flags of the simulated fleet. All default to unset;
+    `resilience_from_args` returns None unless at least one is given."""
+    g = p.add_argument_group("resilience")
+    g.add_argument("--retry-attempts", type=int, default=None,
+                   help="max attempts per fallible op (save/restore/join)")
+    g.add_argument("--retry-base", type=float, default=None,
+                   help="first backoff delay, seconds")
+    g.add_argument("--retry-max-delay", type=float, default=None,
+                   help="backoff ceiling, seconds")
+    g.add_argument("--retry-deadline", type=float, default=None,
+                   help="total backoff budget per op, seconds")
+    g.add_argument("--quorum", type=float, default=None,
+                   help="pause training below this alive fraction")
+    g.add_argument("--shrink-below", type=float, default=None,
+                   help="shrink the global batch below this alive "
+                        "fraction (but above --quorum)")
+    g.add_argument("--shrink-factor", type=float, default=None,
+                   help="global-batch factor while shrunk (default 0.5)")
+    g.add_argument("--restore-fail-p", type=float, default=None,
+                   help="simulated per-attempt restore failure "
+                        "probability (fleet sim stall model)")
+
+
+def resilience_from_args(args: argparse.Namespace):
+    """`ResilienceConfig` from the add_resilience_args namespace, or None
+    when no resilience flag was passed."""
+    names = ("retry_attempts", "retry_base", "retry_max_delay",
+             "retry_deadline", "quorum", "shrink_below", "shrink_factor",
+             "restore_fail_p")
+    vals = {n: getattr(args, n, None) for n in names}
+    if all(v is None for v in vals.values()):
+        return None
+    from repro_torch.resilience import (DegradationPolicy, ResilienceConfig,
+                                        RetryPolicy)
+    retry = RetryPolicy()
+    for field, name in (("max_attempts", "retry_attempts"),
+                        ("base_delay_s", "retry_base"),
+                        ("max_delay_s", "retry_max_delay"),
+                        ("deadline_s", "retry_deadline")):
+        if vals[name] is not None:
+            retry = dataclasses.replace(retry, **{field: vals[name]})
+    degr = DegradationPolicy(
+        quorum=vals["quorum"] or 0.0,
+        shrink_below=vals["shrink_below"] or 0.0,
+        shrink_factor=(0.5 if vals["shrink_factor"] is None
+                       else vals["shrink_factor"]))
+    return ResilienceConfig(retry=retry, degradation=degr,
+                            restore_fail_p=vals["restore_fail_p"] or 0.0,
+                            seed=getattr(args, "seed", 0) or 0)
+
+
 def run_config_from_args(args: argparse.Namespace) -> RunConfig:
     """RunConfig from the add_train_args/add_scale_args namespace; absent
     attributes fall back to RunConfig defaults. ``--checkpoint-dir`` is
@@ -69,6 +139,11 @@ def run_config_from_args(args: argparse.Namespace) -> RunConfig:
     if "total_steps" in picked:
         picked["warmup_steps"] = max(1, picked["total_steps"] // 10)
     picked["zero1"] = False
+    # the simulated fleet honors a ResilienceConfig; the trainer still
+    # refuses one, and `train` has no resilience flags
+    res = resilience_from_args(args)
+    if res is not None:
+        picked["resilience"] = res
     return dataclasses.replace(RunConfig(), **picked)
 
 

@@ -227,6 +227,73 @@ def test_ssd_backward_on_card_is_autograd_over_the_plain_version(cuda):
                                    atol=1e-4 * float(w_.abs().max()))
 
 
+# ---------------------------------------------------------- event select
+def _es_matrix(n, m, dtype, seed=0):
+    """Random event times with 30% masked, and the edge rows where n
+    allows: all masked, a full tie, -inf twice, a NaN."""
+    rng = np.random.default_rng(seed)
+    ev = rng.uniform(0.0, 1e6, (n, m))
+    ev[rng.random((n, m)) < 0.3] = np.inf
+    if n >= 4:
+        ev[0] = np.inf
+        ev[1] = 7.0
+        ev[2, 1] = ev[2, m - 1] = -np.inf
+        ev[3, 1] = np.nan
+    return torch.from_numpy(ev.astype(dtype))
+
+
+def test_event_select_cpu_tensors_never_reach_the_kernel():
+    """On the CPU `ops.event_select` is the plain version and counts no
+    launch; the launcher itself refuses a CPU tensor."""
+    from repro_torch.kernels import event_select as es
+    before = dict(ops.launches)
+    ev = _es_matrix(257, 17, "float64")
+    t, i = ops.event_select(ev)
+    want_t, want_i = ref.event_select_ref(ev)
+    assert torch.equal(i, want_i) and i.dtype == torch.int32
+    assert torch.equal(t.view(torch.int64), want_t.view(torch.int64))
+    assert ops.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        es.event_select_fwd(ev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n,m", [(65536, 8), (4096, 8), (1, 2), (257, 17)])
+def test_event_select_kernel_matches_plain_on_card(cuda, n, m, dtype):
+    """Bit for bit: the minimum (NaN rows: the row's first NaN) and the
+    lowest column attaining it."""
+    from repro_torch.kernels import event_select as es
+    ev = _es_matrix(n, m, dtype).to(cuda)
+    t, i = es.event_select_fwd(ev)
+    want_t, want_i = ref.event_select_ref(ev)
+    torch.cuda.synchronize()
+    bits = torch.int64 if dtype == "float64" else torch.int32
+    assert t.dtype == ev.dtype and i.dtype == torch.int32
+    assert torch.equal(i, want_i)
+    assert torch.equal(t.view(bits), want_t.view(bits))
+    if n >= 4:
+        assert i[:4].tolist() == [0, 0, 1, 0]
+        assert t[:2].tolist() == [float("inf"), 7.0]
+        assert t[2].item() == float("-inf") and bool(torch.isnan(t[3]))
+
+
+@pytest.mark.cuda
+def test_event_select_launcher_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import event_select as es
+    ev = _es_matrix(64, 8, "float64").to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        es.event_select_fwd(ev.t())
+    with pytest.raises(ValueError, match="contiguous"):
+        es.event_select_fwd(ev[:0])
+    with pytest.raises(TypeError):
+        es.event_select_fwd(ev.to(torch.int64))
+    before = ops.launches["event_select_fwd"]
+    ops.event_select(ev)
+    torch.cuda.synchronize()
+    assert ops.launches["event_select_fwd"] == before + 1
+
+
 # ------------------------------------------------------------- the build
 def test_build_names_the_library_by_its_sources(tmp_path, monkeypatch):
     """An edited source gets a new library name, so a stale build is
