@@ -7,15 +7,19 @@ Phases, each of which exits non-zero on failure:
 
 1. card:    print the card's name and power limit (nvidia-smi);
 2. build:   build the hand-written kernels from src/repro_torch/kernels/csrc
-            with nvcc for sm_90a;
+            with nvcc for sm_90a; print every kernel's ptxas lines
+            (registers, spill bytes) and the flash kernels' HGMMA / HMMA
+            counts from `cuobjdump -sass`;
 3. kernels: hold each kernel against its plain PyTorch version on the card
             (flash-attention forward: out and lse; flash-attention
             backward: dq, dk, dv; RMSNorm; the SSD scan at the mamba2 and
             zamba2 shapes; event select, bit for bit, at the fleet
             engine's widths) and time the kernel, the plain version and,
-            where one exists, one PyTorch library call; the host cost of
-            RMSNorm's dispatch through its autograd Function; the SSD
-            backward (autograd over the plain version);
+            where one exists, one PyTorch library call, with TFLOP/s and
+            the share of the bound reached (the flash forward also at the
+            training shape and at zamba2's); the host cost of RMSNorm's
+            dispatch through its autograd Function; the SSD backward
+            (autograd over the plain version);
 4-7b. qwen3-1.7b (dense), full width:
    4. prefill: B=1, S=2048 through `launch.steps.make_prefill_step`, which
             must launch the flash kernel once per layer and the RMSNorm
@@ -66,6 +70,7 @@ import gc
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -192,6 +197,24 @@ def time_ms(torch, fn, warmup: int = 5, iters: int = 25) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def host_ms(torch, fn, batches: int = 10, iters: int = 20) -> float:
+    """Host time of one call: the least, over batches, of the mean of
+    back-to-back calls that never wait for the card, whose queue absorbs
+    the kernels, so the clock sees the host's own cost (Python, ctypes,
+    tensor maps, launch); the least, as other work on the host only adds
+    to it."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        per.append((time.perf_counter() - t0) * 1e3 / iters)
+        torch.cuda.synchronize()
+    return min(per)
+
+
 def device_profile(torch, fn, n: int, count=None):
     """Run ``fn`` n times under torch.profiler. Returns the device time per
     call summed over kernels and copies (ms) and that time by kernel name,
@@ -248,6 +271,75 @@ def say_profile(what: str, wall_ms: float, device_ms: float, ranked,
         say("    by category:")
         for cat, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
             say(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {cat}")
+
+
+def kernel_name(mangled: str) -> str:
+    """flash_fwd_bf16_kernel<128> for the mangled name of that kernel
+    (ssd_scan_kernel<f, 32> for one with a type and a value): the last
+    length-prefixed name that ends in _kernel (a hash before it may read
+    as a longer one), with its template arguments."""
+    found = None
+    for m in re.finditer(r"(?=(\d+)([A-Za-z]\w*))", mangled):
+        n, rest = int(m.group(1)), m.group(2)
+        if len(rest) >= n and rest[:n].endswith("_kernel"):
+            found = rest[:n], rest[n:]
+    if found is None:
+        return mangled[:80]
+    name, tail = found
+    a = re.match(r"I(\w+?)E", tail)
+    args = re.sub(r"^Li", "", a.group(1)).replace("Li", ", ") if a else ""
+    return f"{name}<{args}>" if args else name
+
+
+def say_build(build) -> None:
+    """The ptxas lines (registers, shared memory, spill bytes) of every
+    kernel of the last build, each under its source and beside its entry's
+    name, then the HGMMA (wgmma) and HMMA (mma.sync) instructions of each
+    flash kernel in the library's SASS."""
+    entry = ""
+    for line in build.last_build_log.splitlines():
+        line = line.strip()
+        if line.startswith("=="):
+            say(f"      {line}")
+        elif "Compiling entry function" in line:
+            entry = kernel_name(line.split("'")[1] if "'" in line else line)
+        elif "spill" in line or "registers" in line:
+            say(f"      {entry}: {line.replace('ptxas info    : ', '')}")
+    nvcc = pathlib.Path(build.nvcc_path())
+    cuobjdump = nvcc.parent / "cuobjdump"
+    if not cuobjdump.exists():
+        say("      HGMMA count: not available (no cuobjdump in the toolkit)")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path())],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        say(f"      HGMMA count: not available ({sass.stderr.strip()[:200]})")
+        return
+    func, per = "", {}
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :")[1].strip()
+        elif "flash" in func:
+            n = per.setdefault(func, [0, 0])
+            n[0] += "HGMMA" in line
+            n[1] += " HMMA" in line
+    for func, (hgmma, hmma) in sorted(per.items()):
+        say(f"      SASS {kernel_name(func)}: {hgmma} HGMMA, {hmma} HMMA")
+
+
+def flash_fwd_cost(b, s, h, kv, hd):
+    """Products (QK^T and PV over the causal pairs) and bytes (q, k, v
+    and out in bf16, lse in fp32) of one causal forward call."""
+    pairs = s * (s + 1) // 2
+    flops = 4.0 * b * h * hd * pairs
+    nbytes = 2 * b * s * hd * (2 * h + 2 * kv) + 4 * b * h * s
+    return flops, nbytes
+
+
+def say_rate(name: str, ms: float, flops: float, bound_ms: float) -> None:
+    say(f"    {name}: {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{100 * bound_ms / ms:.1f}% of its bound ({bound_ms:.4f} ms)")
 
 
 def kernel_ms(ranked, needle: str) -> float:
@@ -825,9 +917,7 @@ def main() -> int:
     _build.library()
     say(f"[2/13] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
-    for line in _build.last_build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            say(f"      {line.strip()}")
+    say_build(_build)
 
     # ------------------------------------------------ 3. kernels vs plain
     say("[3/13] kernels vs plain versions")
@@ -838,7 +928,10 @@ def main() -> int:
     fa_errs = []
     for (B, Sq, Sk, h, kv, hdim, causal, dtype) in [
             (1, SEQ, SEQ, H, KV, hd, True, "bfloat16"),      # main path
+            (TRAIN_BATCH, SEQ, SEQ, H, KV, hd, True, "bfloat16"),  # train
+            (1, SEQ, SEQ, 32, 32, 64, True, "bfloat16"),     # zamba2-1.2b
             (2, 200, 200, H, KV, hd, True, "bfloat16"),      # ragged
+            (1, 129, 129, H, KV, hd, True, "bfloat16"),      # a tile + 1
             (2, 192, 320, 4, 2, 64, False, "float32"),       # bidirectional
             (1, 100, 100, 4, 1, 32, True, "float32")]:
         dt = getattr(torch, dtype)
@@ -853,23 +946,45 @@ def main() -> int:
         fa_errs.append(compare(torch, tag + " out", out, want_out, dtype))
         fa_errs.append(compare(torch, tag + " lse", lse, want_lse, dtype))
 
+    def sdpa_fwd(q, k, v):
+        """One SDPA call on the same inputs (the yardstick, not a path)."""
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        h, kv = q.shape[2], k.shape[2]
+        if h == kv:
+            sdpa_kw = {}
+        elif tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5):
+            sdpa_kw = {"enable_gqa": True}
+        else:  # no GQA switch before torch 2.5: give SDPA expanded heads
+            kt, vt = (x.repeat_interleave(h // kv, dim=1) for x in (kt, vt))
+            sdpa_kw = {}
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, **sdpa_kw)
+
+    # the training shape and zamba2-1.2b's shared attention (MHA, hd=64)
+    for (B, h, kv, hdim) in [(TRAIN_BATCH, H, KV, hd), (1, 32, 32, 64)]:
+        q = randn((B, SEQ, h, hdim), torch.bfloat16, 1)
+        k = randn((B, SEQ, kv, hdim), torch.bfloat16, 2)
+        v = randn((B, SEQ, kv, hdim), torch.bfloat16, 3)
+        f_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v,
+                                                             causal=True))
+        s_ms = time_ms(torch, sdpa_fwd(q, k, v))
+        flops, nbytes = flash_fwd_cost(B, SEQ, h, kv, hdim)
+        bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+        say(f"  flash_attention_fwd @ B={B} S={SEQ} H={h} KV={kv} hd={hdim} "
+            f"causal bf16: kernel {f_ms:.4f} ms per call, sdpa {s_ms:.4f} ms "
+            f"({f_ms / s_ms:.2f}x sdpa)")
+        say_rate("kernel", f_ms, flops, bound * 1e3)
+        say_rate("sdpa", s_ms, flops, bound * 1e3)
+        del q, k, v
+
     q = randn((1, SEQ, H, hd), torch.bfloat16, 1)
     k = randn((1, SEQ, KV, hd), torch.bfloat16, 2)
     v = randn((1, SEQ, KV, hd), torch.bfloat16, 3)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5):
-        sdpa_kw = {"enable_gqa": True}
-    else:  # no GQA switch before torch 2.5: give SDPA the expanded heads
-        kt, vt = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
-        sdpa_kw = {}
     ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True))
     plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True),
                        warmup=2, iters=20)
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, **sdpa_kw))
-    pairs = SEQ * (SEQ + 1) // 2                       # causal (q, k) pairs
-    flops = 4.0 * H * hd * pairs                       # QK^T and PV
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * H * SEQ
+    lib_ms = time_ms(torch, sdpa_fwd(q, k, v))
+    flops, nbytes = flash_fwd_cost(1, SEQ, H, KV, hd)
     bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
     report["flash_attention_fwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -881,18 +996,24 @@ def main() -> int:
         library_ms=lib_ms)
     _, ranked = device_profile(
         torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True), 10)
+    host = host_ms(torch, lambda: fa.flash_attention_fwd(q, k, v,
+                                                         causal=True))
     say(f"  flash_attention_fwd @ B=1 S={SEQ} H={H} KV={KV} hd={hd} causal "
         f"bf16: kernel {ms:.4f} ms per call "
-        f"({kernel_ms(ranked, 'flash_fwd_'):.4f} ms on the device), "
+        f"({kernel_ms(ranked, 'flash_fwd_'):.4f} ms on the device, "
+        f"{host:.4f} ms of host time with 3 tensor maps), "
         f"plain {plain_ms:.4f} ms, sdpa "
         f"{lib_ms:.4f} ms, bound {bound * 1e3:.4f} ms "
         f"({flops / 1e9:.2f} GFLOP / 989 TFLOP/s; {nbytes / 1e6:.1f} MB); "
-        f"kernel at {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        f"{ms / lib_ms:.2f}x sdpa")
+    say_rate("kernel", ms, flops, bound * 1e3)
+    say_rate("sdpa", lib_ms, flops, bound * 1e3)
 
     bwd_errs = []
     for (B, Sq, Sk, h, kv, hdim, causal, dtype) in [
             (TRAIN_BATCH, SEQ, SEQ, H, KV, hd, True, "bfloat16"),  # train
             (2, 200, 200, H, KV, hd, True, "bfloat16"),      # ragged GQA
+            (1, 129, 129, H, KV, hd, True, "bfloat16"),      # a tile + 1
             (2, 192, 320, 4, 2, 64, False, "float32"),       # bidirectional
             (1, 100, 100, 4, 1, 32, True, "float32")]:       # MQA
         dt = getattr(torch, dtype)
@@ -948,14 +1069,23 @@ def main() -> int:
         library_ms=lib_ms)
     _, ranked = device_profile(torch, lambda: fa.flash_attention_bwd(
         q, k, v, out, lse, do, causal=True), 5)
+    host = host_ms(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=True))
+    # delta reads dO and out and writes one fp32 per row, each once
+    delta_bound = (2 * 2 * do.numel() + 4 * lse.numel()) / HBM_BYTES_PER_S
     say(f"  flash_attention_bwd @ B={B} S={SEQ} H={H} KV={KV} hd={hd} causal "
-        f"bf16: kernel {ms:.4f} ms per call (dq "
+        f"bf16: kernel {ms:.4f} ms per call (delta "
+        f"{kernel_ms(ranked, 'flash_bwd_delta_'):.4f} [bound "
+        f"{delta_bound * 1e3:.4f}] + dq "
         f"{kernel_ms(ranked, 'flash_bwd_dq_'):.4f} + dk/dv "
-        f"{kernel_ms(ranked, 'flash_bwd_dkv_'):.4f} ms on the device), "
+        f"{kernel_ms(ranked, 'flash_bwd_dkv_'):.4f} ms on the device, "
+        f"{host:.4f} ms of host time with 8 tensor maps), "
         f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
         f"{bound * 1e3:.4f} ms ({flops / 1e9:.2f} GFLOP / 989 TFLOP/s; "
         f"{nbytes / 1e6:.1f} MB; the two passes execute 1.4x the FLOP); "
-        f"kernel at {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        f"{ms / lib_ms:.2f}x sdpa backward")
+    say_rate("kernel", ms, flops, bound * 1e3)
+    say_rate("sdpa backward", lib_ms, flops, bound * 1e3)
     del q, k, v, do, out, lse, qt, kt, vt, sdpa_out, dot
 
     rn_errs = []
@@ -994,6 +1124,7 @@ def main() -> int:
         f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
         f"{bound * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB / 3.35 TB/s); kernel at "
         f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+    say_rate("kernel", ms, flops, bound * 1e3)
     # host cost of dispatch through the autograd Function, at the decode
     # shape and under no_grad as a decode step calls it (113 per step)
     xd = randn((N_BATCH, d), torch.bfloat16, 4)
@@ -1065,6 +1196,7 @@ def main() -> int:
         f"{nbytes / 1e6:.1f} MB / 3.35 TB/s); kernel at "
         f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
         f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+    say_rate("kernel", ms, flops, bound * 1e3)
     # the backward is the plain version's, by recompute (`ops._SSDScan`)
     b = TRAIN_BATCH
     ins = [t.requires_grad_() for t in ssd_inputs(b, s, h, p, g, n,
@@ -1140,6 +1272,7 @@ def main() -> int:
         f"per call ({kernel_ms(ranked, 'event_select_kernel'):.4f} ms on "
         f"the device), plain {plain_ms:.4f} ms, torch.min {lib_ms:.4f} ms, "
         f"bound {bound * 1e3:.5f} ms ({nbytes / 1e6:.2f} MB / 3.35 TB/s)")
+    say_rate("kernel (fp64 comparisons)", ms, ops_es, bound * 1e3)
     del ev
     torch.cuda.synchronize()
 

@@ -110,7 +110,7 @@ def library() -> ctypes.CDLL:
             + [ctypes.c_float, i32, ptr])
         lib.repro_flash_attention_fwd.restype = i32
         lib.repro_flash_attention_bwd.argtypes = (
-            [ptr] * 9 + [i32] * 7 + [i64] * 12
+            [ptr] * 10 + [i32] * 7 + [i64] * 15
             + [ctypes.c_float, i32, ptr])
         lib.repro_flash_attention_bwd.restype = i32
         lib.repro_rmsnorm_fwd.argtypes = [ptr, ptr, ptr, i64, i32,

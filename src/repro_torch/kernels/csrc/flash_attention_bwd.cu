@@ -2,9 +2,9 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention_bwd
 // (Pallas bodies `_bwd_dq_kernel` and `_bwd_dkv_kernel`). With the forward's
-// logsumexp `lse` and `delta = rowsum(dO * out)` (a plain reduction in the
-// launcher, as XLA computed it in the reference), each (query, key) pair
-// recomputes
+// logsumexp `lse` and `delta = rowsum(dO * out)` (computed here by a small
+// kernel, as XLA computed it beside the Pallas calls in the reference),
+// each (query, key) pair recomputes
 //     p  = exp(q.k * scale - lse)        (0 where masked: causal top-left,
 //                                         keys past Sk, queries past Sq)
 //     dp = dO.v
@@ -15,31 +15,52 @@
 // What bounds it on the H100: the five products (q.k, dO.v, ds K, ds^T Q,
 // p^T dO). At the training shape (B=2, S=2048, H=16, hd=128, causal) they
 // are 10 * hd * pairs * H * B = 86 GFLOP against about 100 MB of inputs and
-// outputs, so the tensor-core rate (989 TFLOP/s bf16) is the bound.
+// outputs, so the tensor-core rate (989 TFLOP/s bf16) is the bound:
+// 0.0869 ms.
 //
-// What this design does about it: two kernels, neither with atomics, so
-// the gradients are deterministic.
-//  * dq: one block per (batch, head, 64-query tile) loops over the key
-//    tiles up to the diagonal and keeps dq in registers (the Pallas grid's
-//    sequential key axis becomes the loop).
-//  * dk/dv: one block per (batch, KV head, 64-key tile) loops over the G
-//    query heads of its group and over the query tiles from the diagonal
-//    down, so it owns the group sum and no (B, H, Sk, hd) intermediate is
-//    written (the reference sums per-head dk/dv outside its kernel).
-// q.k and dO.v are computed in both kernels: the two-pass design executes
-// 14 of the 10 units of product work (1.4x the bound's count).
+// What this design does about it: three kernels, none with atomics, so the
+// gradients are deterministic and dk/dv are summed over the GQA group
+// inside the kernel.
+//  * delta: 16-byte loads of dO and out, 16 lanes a row at hd = 128, fp32
+//    sums; bound by its bytes (33.8 MB at the training shape: 0.0101 ms).
+//  * dq: one block per (batch, head, 128-query tile) with Q and dO loaded
+//    once and K, V streamed in 64-key tiles up to the diagonal; S = Q K^T,
+//    dP = dO V^T and dQ += dS K on `wgmma`.
+//  * dk/dv: one block per (batch, KV head, 64-key tile) with K and V
+//    resident; Q, dO, lse and delta tiles of 64 queries stream through a
+//    3-stage ring for each of the G query heads and each query tile from
+//    the diagonal down. The two consumer warpgroups share the block's keys
+//    and split the four products: warpgroup 0 runs S^T = K Q^T and
+//    dV += P^T dO, warpgroup 1 dP^T = V dO^T and dK += dS^T Q, with P^T
+//    handed over in fp32 through shared memory under two named barriers.
+//    Each thread then holds one 64 x hd accumulator, not two, and the
+//    consumers stay within R165. One warpgroup holding dK and dV for its
+//    own 64 keys (128 a block) and running all four products spilled
+//    1,148 bytes at hd = 128 although `setmaxnreg` granted its consumers
+//    240 registers (ptxas allocated up to R192, then spilled), and took
+//    0.665 ms against this design's 0.22 ms at the training shape (NVIDIA
+//    H100 80GB HBM3, 700 W; PERF.md).
+// bf16 inputs (hopper.cuh): a producer warp keeps the ring full with TMA
+// (tensor maps over the reference layout; zero fill past S handles ragged
+// lengths) on full/empty mbarriers; two consumer warpgroups of 64 rows
+// each run the products, A and B from shared memory for the score
+// products and the bf16-rounded P^T, dS^T (dS) from the accumulators in
+// registers as the A operand of the gradient products (as the Pallas
+// kernels cast p and ds to the inputs' dtype), the MN-major B through the
+// transpose flag; `setmaxnreg` as in the forward. q.k and dO.v are
+// computed in both kernels: the two-pass design executes 14 of the 10
+// units of product work (1.4x the bound's count).
 //
-// bf16 inputs run every product on the tensor cores (`mma.sync` m16n8k16,
-// fp32 accumulation, fragments as in flash_attention_fwd.cu); p and ds are
-// rounded to bf16 as the A operands of their products. Each of 4 warps owns
-// 16 rows (queries in the dq kernel, keys in the dk/dv kernel) and works on
-// 32-column halves of each 64-wide tile, to keep the accumulators in
-// registers. Tiles load synchronously: no cp.async/TMA pipeline and no
-// wgmma yet.
+// The design it replaces (64-row tiles of 4 warps, synchronous
+// loads, `mma.sync` m16n8k16 on 32-column halves of each tile, delta in
+// three PyTorch ops) took 1.3493 ms on the device (dq 0.6554 + dk/dv
+// 0.6939; 1.3841 ms per call) at the training shape, 3.5x SDPA's backward
+// (0.3955 ms), on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+// (PERF.md, kernel table).
 //
 // fp32 inputs run as fp32 FMAs on the CUDA cores (the 3e-4 gradient
 // tolerance rules out bf16 or TF32 products): tiles in padded shared
-// memory, 4x4 score register tiles per thread.
+// memory, 4x4 score register tiles per thread, 64-row tiles.
 //
 // Ragged lengths are masked in the kernels. Head dims 32, 64 and 128;
 // causal needs Sq == Sk.
@@ -49,11 +70,11 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace repro_mma;
+using namespace repro_hopper;
 
 constexpr int kBlock = 64;  // query and key tile
 
@@ -334,305 +355,493 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
+
+// ==================================================================== delta
+// the dot product of kVec elements of dO and out: one 16-byte load of
+// each for bf16 (the bf16 entry takes only 16-byte-aligned tensors with
+// strides of 8 elements), one element for fp32 (which takes any strides)
+template <typename T>
+constexpr int kVec = sizeof(T) == 2 ? 8 : 1;
+
+__device__ __forceinline__ float dot_vec(const float* o, const float* u) {
+  return o[0] * u[0];
+}
+__device__ __forceinline__ float dot_vec(const __nv_bfloat16* o,
+                                         const __nv_bfloat16* u) {
+  const uint4 a = *reinterpret_cast<const uint4*>(o);
+  const uint4 c = *reinterpret_cast<const uint4*>(u);
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&c);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
+    acc += fx.x * fy.x;
+    acc += fx.y * fy.y;
+  }
+  return acc;
+}
+
+// delta[b, h, s] = sum_d dO[b, s, h, d] * out[b, s, h, d], fp32, in a
+// fixed summation order. A row takes kLanes lanes (16 at hd = 128 in bf16,
+// 32 in fp32), each reading kVec elements a load; a block of 256 threads
+// takes 256 / kLanes rows. It moves the bytes of dO, out and delta once:
+// at the training shape (B=2, S=2048, H=16, hd=128, bf16) 33.8 MB, a
+// bound of 0.0101 ms at 3.35 TB/s.
+template <typename T, int HD>
+struct DeltaShape {
+  static constexpr int kLanes = HD / kVec<T> < 32 ? HD / kVec<T> : 32;
+  static constexpr int kRows = 256 / kLanes;  // rows per block
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
+                       float* __restrict__ delta, long long rows, int Sq,
+                       int H, long long o_sb, long long o_ss, long long o_sh,
+                       long long u_sb, long long u_ss, long long u_sh) {
+  constexpr int kLanes = DeltaShape<T, HD>::kLanes, V = kVec<T>;
+  const long long row = static_cast<long long>(blockIdx.x) *
+                            DeltaShape<T, HD>::kRows + threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  // a warp may hold rows past the end: its lanes still join the shuffles
+  const bool live = row < rows;
+  const int h = static_cast<int>(row % H);
+  const int s = static_cast<int>((row / H) % Sq);
+  const long long b = row / (static_cast<long long>(H) * Sq);
+  float acc = 0.f;
+  if (live) {
+    const T* o = dout + b * o_sb + s * o_ss + h * o_sh;
+    const T* u = out + b * u_sb + s * u_ss + h * u_sh;
+#pragma unroll
+    for (int d = lane * V; d < HD; d += kLanes * V) acc += dot_vec(o + d, u + d);
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (live && lane == 0) delta[(b * H + h) * Sq + s] = acc;
+}
+
 // ===================================================================== bf16
-constexpr int kWarps16 = kBlock / 16;  // one warp per 16 rows
-constexpr int kThreads16 = kWarps16 * 32;
-constexpr int kHalf = kBlock / 2;      // columns a warp holds at once
+// Each block: consumer warpgroups 0 and 1 (64 rows each) and producer
+// warpgroup 2 (one warp issues TMA, the rest idle).
+constexpr int kWsThreads = 384;
+constexpr int kStages = 2;     // the dq kernel's ring
+constexpr int kDkvStages = 3;  // the dk/dv kernel's ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kDqBlockM = 128;   // queries per dq block
+constexpr int kDqBlockN = 64;    // keys per streamed tile
+constexpr int kDkvBlockN = 64;   // keys per dk/dv block
+constexpr int kDkvBlockM = 64;   // queries per streamed tile
+constexpr int kPFull = 1, kPEmpty = 2;  // named barriers of the dk/dv kernel
 
 template <int HD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src, int r0,
-                                               int n, long long stride,
-                                               int tid) {
-  constexpr int LD = HD + 8, VPR = HD / 8;
-  for (int e = tid; e < kBlock * VPR; e += kThreads16) {
-    const int r = e / VPR, c = (e % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+struct DqSmem {
+  using QTile = Tile<HD, kDqBlockM>;
+  using KTile = Tile<HD, kDqBlockN>;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = QTile::kBytes;
+  static constexpr int kK = 2 * QTile::kBytes;              // + stage
+  static constexpr int kV = kK + kStages * KTile::kBytes;   // + stage
+  static constexpr int kBars = kV + kStages * KTile::kBytes;
+  static constexpr size_t kDynamic = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int HD>
+struct DkvSmem {
+  using KTile = Tile<HD, kDkvBlockN>;
+  using QTile = Tile<HD, kDkvBlockM>;
+  static constexpr int kK = 0;
+  static constexpr int kV = KTile::kBytes;
+  static constexpr int kQ = 2 * KTile::kBytes;                 // + stage
+  static constexpr int kDO = kQ + kDkvStages * QTile::kBytes;  // + stage
+  static constexpr int kLse = kDO + kDkvStages * QTile::kBytes;  // [stage][64]
+  static constexpr int kDelta = kLse + kDkvStages * kDkvBlockM * 4;
+  // P^T from warpgroup 0 to warpgroup 1: 32 values of each of 128 threads
+  static constexpr int kP = kDelta + kDkvStages * kDkvBlockM * 4;
+  static constexpr int kBars = kP + kDkvBlockN * kDkvBlockM * 4;
+  static constexpr size_t kDynamic = kBars + 8 * (1 + 2 * kDkvStages) + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+// rows `r` and `r + 8` of a 64 x HD accumulator as bf16 into row-major
+// global rows dst0 and dst1 (null: row not written)
+template <int HD>
+__device__ __forceinline__ void store_acc_rows(__nv_bfloat16* dst0,
+                                               __nv_bfloat16* dst1,
+                                               const float (&acc)[HD / 2],
+                                               int t) {
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    if (dst0)
+      *reinterpret_cast<__nv_bfloat162*>(dst0 + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    if (dst1)
+      *reinterpret_cast<__nv_bfloat162*>(dst1 + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
 template <int HD>
-constexpr size_t smem_bf16() {
-  // four tiles, rows padded by 16 bytes (distinct banks per ldmatrix
-  // phase), then 64 lse and 64 delta values
-  return sizeof(__nv_bfloat16) * 4 * kBlock * (HD + 8) +
-         sizeof(float) * 2 * kBlock;
-}
-
-// Rows r (16 per warp) against 32 columns: acc[j] += X[r] . Y[col]^T over
-// the head dim, X's A fragments read from Xs, Y rows from Ys (both (rows,
-// HD) row-major, pitch HD + 8), columns c0 + 8 j.
-template <int HD>
-__device__ __forceinline__ void product_nt(float (&acc)[kHalf / 8][4],
-                                           const __nv_bfloat16* Xs, int xr0,
-                                           const __nv_bfloat16* Ys, int c0,
-                                           int lane) {
-  constexpr int LD = HD + 8;
-#pragma unroll
-  for (int j = 0; j < kHalf / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; kk += 2) {
-    uint32_t a0[4], a1[4];
-    load_a(a0, Xs, xr0, kk * 16, LD, lane);
-    load_a(a1, Xs, xr0, kk * 16 + 16, LD, lane);
-#pragma unroll
-    for (int j = 0; j < kHalf / 8; ++j) {
-      uint32_t bf[4];
-      load_b_nt(bf, Ys, c0 + 8 * j, kk * 16, LD, lane);
-      mma_bf16(acc[j], a0, bf[0], bf[1]);
-      mma_bf16(acc[j], a1, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 rows x HD) += A (16 x 32, fragments af) . Y[k0..k0+31, :] with Y
-// (rows, HD) row-major in shared memory
-template <int HD>
-__device__ __forceinline__ void product_nn(float (&acc)[HD / 8][4],
-                                           const uint32_t (&af)[kHalf / 16][4],
-                                           const __nv_bfloat16* Ys, int k0,
-                                           int lane) {
-  constexpr int LD = HD + 8;
-#pragma unroll
-  for (int kk = 0; kk < kHalf / 16; ++kk) {
-#pragma unroll
-    for (int n2 = 0; n2 < HD / 16; ++n2) {
-      uint32_t bf[4];
-      load_b_nn(bf, Ys, k0 + kk * 16, n2 * 16, LD, lane);
-      mma_bf16(acc[2 * n2], af[kk], bf[0], bf[1]);
-      mma_bf16(acc[2 * n2 + 1], af[kk], bf[2], bf[3]);
-    }
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst,
-                                                const float (&acc)[HD / 8][4],
-                                                int half, int t) {
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * t) =
-        __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads16)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dq, int H, int G, int Sq,
-                         int Sk, long long q_sb, long long q_ss, long long q_sh,
-                         long long k_sb, long long k_ss, long long k_sh,
-                         long long v_sb, long long v_ss, long long v_sh,
-                         long long o_sb, long long o_ss, long long o_sh,
-                         float scale, int causal) {
-  constexpr int LD = HD + 8, NT = HD / 8, SN = kHalf / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + kBlock * LD;
-  __nv_bfloat16* Ks = dOs + kBlock * LD;
-  __nv_bfloat16* Vs = Ks + kBlock * LD;
+                         int Sk, float scale, int causal) {
+  using L = DqSmem<HD>;
+  using QTile = typename L::QTile;
+  using KTile = typename L::KTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4;
+  const int lane = tid % 32;
   const int iq = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = iq * kBlock;
-  const int qr[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const __nv_bfloat16* kb = k + b * k_sb + (h / G) * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + (h / G) * v_sh;
+  const int q0 = iq * kDqBlockM;
+  const int k_end = causal ? min(Sk, q0 + kDqBlockM) : Sk;
+  const int nk = (k_end + kDqBlockN - 1) / kDqBlockN;
 
-  load_tile_bf16<HD>(Qs, q + b * q_sb + h * q_sh, q0, Sq, q_ss, tid);
-  load_tile_bf16<HD>(dOs, dout + b * o_sb + h * o_sh, q0, Sq, o_ss, tid);
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    setmaxnreg_dec<24>();
+    if (warp == 0 && lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * QTile::kBytes);
+      QTile::load(smem + L::kQ, &map_q, q_full, q0, h, b);
+      QTile::load(smem + L::kDO, &map_do, q_full, q0, h, b);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * KTile::kBytes);
+        KTile::load(smem + L::kK + s * KTile::kBytes, &map_k, &full[s],
+                    kt * kDqBlockN, h / G, b);
+        KTile::load(smem + L::kV + s * KTile::kBytes, &map_v, &full[s],
+                    kt * kDqBlockN, h / G, b);
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  setmaxnreg_inc<240>();
+  const int c = wg;
+  const int g = lane / 4, t = lane % 4;
+  const int row_lo = q0 + 64 * c;
+  const int qr[2] = {row_lo + 16 * warp + g, row_lo + 16 * warp + g + 8};
+  const float scale_log2 = scale * kLog2e;
   const long long bh = (static_cast<long long>(b) * H + h) * Sq;
-  float lse_r[2], del_r[2];
+  float lse2[2], del[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    lse_r[r] = qr[r] < Sq ? lse[bh + qr[r]] : 0.f;
-    del_r[r] = qr[r] < Sq ? delta[bh + qr[r]] : 0.f;
+    lse2[r] = qr[r] < Sq ? lse[bh + qr[r]] * kLog2e : 0.f;
+    del[r] = qr[r] < Sq ? delta[bh + qr[r]] : 0.f;
   }
+  const uint32_t q_base = smem_u32(smem + L::kQ);
+  const uint32_t do_base = smem_u32(smem + L::kDO);
 
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int k_end = causal ? min(Sk, q0 + kBlock) : Sk;
-  const int nk = (k_end + kBlock - 1) / kBlock;
+  float acc[HD / 2];
+  zero(acc);
+  mbar_wait(q_full, 0);
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBlock;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile_bf16<HD>(Ks, kb, k0, Sk, k_ss, tid);
-    load_tile_bf16<HD>(Vs, vb, k0, Sk, v_ss, tid);
-    __syncthreads();
+    const int s = kt % kStages;
+    const int k0 = kt * kDqBlockN;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    // a tile wholly above this warpgroup's diagonal adds 0
+    if (!(causal && k0 > row_lo + 63)) {
+      const uint32_t k_base = smem_u32(smem + L::kK + s * KTile::kBytes);
+      const uint32_t v_base = smem_u32(smem + L::kV + s * KTile::kBytes);
+      float sc[kDqBlockN / 2], dp[kDqBlockN / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int kh = half * kHalf;
-      float s[SN][4], dp[SN][4];
-      product_nt<HD>(s, Qs, warp * 16, Ks, kh, lane);    // q . k
-      product_nt<HD>(dp, dOs, warp * 16, Vs, kh, lane);  // dO . v
-      uint32_t dsf[kHalf / 16][4];
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<0>(sc, QTile::kmajor(q_base, 64 * c, kk),
+                    KTile::kmajor(k_base, 0, kk), kk > 0);
 #pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        float ds[4];
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<0>(dp, QTile::kmajor(do_base, 64 * c, kk),
+                    KTile::kmajor(v_base, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      const bool need_mask =
+          (causal && k0 + kDqBlockN - 1 > row_lo) || k0 + kDqBlockN > Sk;
+#pragma unroll
+      for (int j = 0; j < kDqBlockN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = k0 + kh + 8 * j + 2 * t + (e & 1), r = e / 2;
-          const bool valid =
-              qr[r] < Sq && key < Sk && (!causal || key <= qr[r]);
-          const float p = valid ? expf(s[j][e] * scale - lse_r[r]) : 0.f;
-          ds[e] = p * (dp[j][e] - del_r[r]) * scale;
+          const int r = e >> 1;
+          float p = fast_exp2(sc[4 * j + e] * scale_log2 - lse2[r]);
+          if (need_mask) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            if (key >= Sk || (causal && key > qr[r])) p = 0.f;
+          }
+          sc[4 * j + e] = p * (dp[4 * j + e] - del[r]) * scale;  // ds
         }
-        dsf[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
-        dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
-      product_nn<HD>(acc, dsf, Ks, kh, lane);  // dq += ds K
+      uint32_t da[kDqBlockN / 16][4];
+      to_a_frags(da, sc);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqBlockN / 16; ++kk)
+        wgmma_rs<1>(acc, da[kk], KTile::mnmajor(k_base, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
+  __nv_bfloat16* rows[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r)
-    if (qr[r] < Sq)
-      store_rows_bf16<HD>(
-          dq + ((static_cast<long long>(b) * Sq + qr[r]) * H + h) * HD, acc, r,
-          t);
+    rows[r] = qr[r] < Sq
+                  ? dq + ((static_cast<long long>(b) * Sq + qr[r]) * H + h) * HD
+                  : nullptr;
+  store_acc_rows<HD>(rows[0], rows[1], acc, t);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads16)
-flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int H, int G, int Sq,
-                          int Sk, long long q_sb, long long q_ss, long long q_sh,
-                          long long k_sb, long long k_ss, long long k_sh,
-                          long long v_sb, long long v_ss, long long v_sh,
-                          long long o_sb, long long o_ss, long long o_sh,
-                          float scale, int causal) {
-  constexpr int LD = HD + 8, NT = HD / 8, SN = kHalf / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + kBlock * LD;
-  __nv_bfloat16* Qs = Vs + kBlock * LD;
-  __nv_bfloat16* dOs = Qs + kBlock * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + kBlock * LD);
-  float* del_s = lse_s + kBlock;
+                          int Sk, float scale, int causal) {
+  using L = DkvSmem<HD>;
+  using KTile = typename L::KTile;
+  using QTile = typename L::QTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kDkvStages;
+  float* lse_s = reinterpret_cast<float*>(smem + L::kLse);
+  float* del_s = reinterpret_cast<float*>(smem + L::kDelta);
+  float* p_s = reinterpret_cast<float*>(smem + L::kP);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4;
+  const int lane = tid % 32;
   const int ik = blockIdx.x;  // the first key tiles see the most queries
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int KV = H / G;
-  const int k0 = ik * kBlock;
-  const int kr[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const int k0 = ik * kDkvBlockN;
+  const int nq = (Sq + kDkvBlockM - 1) / kDkvBlockM;
+  // causal: query tiles before the block's first key add 0
+  const int q_first = causal ? k0 / kDkvBlockM : 0;
+  const int n_qt = nq - q_first;
+  const int n_it = G * n_qt;
 
-  load_tile_bf16<HD>(Ks, k + b * k_sb + kvh * k_sh, k0, Sk, k_ss, tid);
-  load_tile_bf16<HD>(Vs, v + b * v_sb + kvh * v_sh, k0, Sk, v_ss, tid);
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full[s], 32);  // every producer lane (lse and delta)
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  float dk_acc[NT][4], dv_acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const int nq = (Sq + kBlock - 1) / kBlock;
-  const int q_first = causal ? ik : 0;  // tiles above the diagonal add 0
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-    const __nv_bfloat16* ob = dout + b * o_sb + h * o_sh;
-    const long long bh = (static_cast<long long>(b) * H + h) * Sq;
-    for (int qt = q_first; qt < nq; ++qt) {
-      const int q0 = qt * kBlock;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile_bf16<HD>(Qs, qb, q0, Sq, q_ss, tid);
-      load_tile_bf16<HD>(dOs, ob, q0, Sq, o_ss, tid);
-      if (tid < kBlock) {
-        lse_s[tid] = q0 + tid < Sq ? lse[bh + q0 + tid] : 0.f;
-        del_s[tid] = q0 + tid < Sq ? delta[bh + q0 + tid] : 0.f;
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    setmaxnreg_dec<24>();
+    if (warp == 0) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * KTile::kBytes);
+        KTile::load(smem + L::kK, &map_k, kv_full, k0, kvh, b);
+        KTile::load(smem + L::kV, &map_v, kv_full, k0, kvh, b);
       }
-      __syncthreads();
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int qh = half * kHalf;
-        float s[SN][4], dp[SN][4];
-        product_nt<HD>(s, Ks, warp * 16, Qs, qh, lane);    // k . q
-        product_nt<HD>(dp, Vs, warp * 16, dOs, qh, lane);  // v . dO
-        uint32_t pf[kHalf / 16][4], dsf[kHalf / 16][4];
-#pragma unroll
-        for (int j = 0; j < SN; ++j) {
-          float p[4], ds[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = qh + 8 * j + 2 * t + (e & 1), qi = q0 + c;
-            const int key = kr[e / 2];
-            const bool valid = qi < Sq && key < Sk && (!causal || key <= qi);
-            p[e] = valid ? expf(s[j][e] * scale - lse_s[c]) : 0.f;
-            ds[e] = p[e] * (dp[j][e] - del_s[c]) * scale;
-          }
-          pf[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
-          pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-          dsf[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
-          dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kDkvStages;
+        const int h = kvh * G + it / n_qt;
+        const int q0 = (q_first + it % n_qt) * kDkvBlockM;
+        const long long bh = (static_cast<long long>(b) * H + h) * Sq;
+        mbar_wait(&empty[s], ((it / kDkvStages) & 1) ^ 1);
+        if (lane == 0) {  // the tiles first: their latency covers the rest
+          mbar_expect_tx(&full[s], 2 * QTile::kBytes);
+          QTile::load(smem + L::kQ + s * QTile::kBytes, &map_q, &full[s], q0,
+                      h, b);
+          QTile::load(smem + L::kDO + s * QTile::kBytes, &map_do, &full[s],
+                      q0, h, b);
         }
-        product_nn<HD>(dv_acc, pf, dOs, qh, lane);  // dv += p^T dO
-        product_nn<HD>(dk_acc, dsf, Qs, qh, lane);  // dk += ds^T Q
+#pragma unroll
+        for (int i = lane; i < kDkvBlockM; i += 32) {
+          const int qi = q0 + i;
+          lse_s[s * kDkvBlockM + i] = qi < Sq ? lse[bh + qi] * kLog2e : 0.f;
+          del_s[s * kDkvBlockM + i] = qi < Sq ? delta[bh + qi] : 0.f;
+        }
+        mbar_arrive(&full[s]);  // each lane releases its own stores
       }
     }
+    return;
   }
 
+  // ---------------------------------------------------------- consumers
+  // Both warpgroups own the block's 64 keys. Warpgroup 0 computes
+  // S^T = K Q^T, P^T, and dV += P^T dO; warpgroup 1 computes dP^T = V dO^T,
+  // dS^T = P^T (dP^T - delta) scale with P^T from warpgroup 0, and
+  // dK += dS^T Q. The two accumulators have one layout, so P^T passes
+  // through shared memory thread to thread, in fp32, under two named
+  // barriers: kPFull (warpgroup 0 arrives, 1 waits) and kPEmpty (the
+  // reverse).
+  setmaxnreg_inc<240>();
+  const int g = lane / 4, t = lane % 4;
+  const int kr[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t k_base = smem_u32(smem + L::kK);
+  const uint32_t v_base = smem_u32(smem + L::kV);
+  float* p_mine = p_s + (tid % 128);  // element i at p_mine[128 i]
+
+  float acc[HD / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+  zero(acc);
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kDkvStages;
+    const int q0 = (q_first + it % n_qt) * kDkvBlockM;
+    mbar_wait(&full[s], (it / kDkvStages) & 1);
+    const uint32_t q_base = smem_u32(smem + L::kQ + s * QTile::kBytes);
+    const uint32_t do_base = smem_u32(smem + L::kDO + s * QTile::kBytes);
+    // S^T or dP^T: 64 keys x 64 queries; sc[4j + e] is (key kr[e >> 1],
+    // query q0 + 8j + 2t + (e & 1))
+    float sc[kDkvBlockM / 2];
+    wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (kr[r] >= Sk) continue;
-    const long long off = ((static_cast<long long>(b) * Sk + kr[r]) * KV + kvh) * HD;
-    store_rows_bf16<HD>(dk + off, dk_acc, r, t);
-    store_rows_bf16<HD>(dv + off, dv_acc, r, t);
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<0>(sc, KTile::kmajor(wg == 0 ? k_base : v_base, 0, kk),
+                  QTile::kmajor(wg == 0 ? q_base : do_base, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    if (wg == 0) {
+      const float* lse2 = lse_s + s * kDkvBlockM;
+      const bool need_mask =
+          (causal && q0 < k0 + kDkvBlockN - 1) || q0 + kDkvBlockM > Sq;
+#pragma unroll
+      for (int j = 0; j < kDkvBlockM / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          float p = fast_exp2(sc[4 * j + e] * scale_log2 - lse2[col]);
+          if (need_mask) {
+            const int qi = q0 + col;
+            if (qi >= Sq || (causal && kr[e >> 1] > qi)) p = 0.f;
+          }
+          sc[4 * j + e] = p;
+        }
+      }
+      if (it > 0) named_bar_sync(kPEmpty, 256);
+#pragma unroll
+      for (int i = 0; i < kDkvBlockM / 2; ++i) p_mine[128 * i] = sc[i];
+      named_bar_arrive(kPFull, 256);
+    } else {
+      const float* del = del_s + s * kDkvBlockM;
+      named_bar_sync(kPFull, 256);
+#pragma unroll
+      for (int j = 0; j < kDkvBlockM / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          sc[4 * j + e] = p_mine[128 * (4 * j + e)] *
+                          (sc[4 * j + e] - del[col]) * scale;  // ds^T
+        }
+      }
+      if (it < n_it - 1) named_bar_arrive(kPEmpty, 256);
+    }
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): the bf16
+    // rounding of P^T or dS^T as the A operand, dO or Q MN-major
+    uint32_t pa[kDkvBlockM / 16][4];
+    to_a_frags(pa, sc);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDkvBlockM / 16; ++kk)
+      wgmma_rs<1>(acc, pa[kk],
+                  QTile::mnmajor(wg == 0 ? do_base : q_base, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
+
+  __nv_bfloat16* out = wg == 0 ? dv : dk;
+  __nv_bfloat16* rows[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    rows[r] = kr[r] < Sk
+                  ? out + ((static_cast<long long>(b) * Sk + kr[r]) * KV + kvh) * HD
+                  : nullptr;
+  store_acc_rows<HD>(rows[0], rows[1], acc, t);
 }
 
 // =================================================================== launch
-template <int HD> auto dq_kernel(const float*) { return flash_bwd_dq_fp32_kernel<HD>; }
-template <int HD> auto dq_kernel(const __nv_bfloat16*) {
-  return flash_bwd_dq_bf16_kernel<HD>;
-}
-template <int HD> auto dkv_kernel(const float*) { return flash_bwd_dkv_fp32_kernel<HD>; }
-template <int HD> auto dkv_kernel(const __nv_bfloat16*) {
-  return flash_bwd_dkv_bf16_kernel<HD>;
-}
-template <int HD> constexpr size_t smem_dq(const float*) { return smem_dq_fp32<HD>(); }
-template <int HD> constexpr size_t smem_dq(const __nv_bfloat16*) { return smem_bf16<HD>(); }
-template <int HD> constexpr size_t smem_dkv(const float*) { return smem_dkv_fp32<HD>(); }
-template <int HD> constexpr size_t smem_dkv(const __nv_bfloat16*) { return smem_bf16<HD>(); }
-constexpr int threads_for(const float*) { return kThreads32; }
-constexpr int threads_for(const __nv_bfloat16*) { return kThreads16; }
-
 struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
+  const void *q, *k, *v, *dout, *out;
+  const float* lse;
+  float* delta;
   void *dq, *dk, *dv;
   int B, Sq, Sk, H, KV;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,
-      o_sh;
+      o_sh, u_sb, u_ss, u_sh;
   float scale;
   int causal;
 };
 
 template <typename T, int HD>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr const T* tag = nullptr;
-  auto kdq = dq_kernel<HD>(tag);
-  auto kdkv = dkv_kernel<HD>(tag);
-  constexpr size_t s_dq = smem_dq<HD>(tag), s_dkv = smem_dkv<HD>(tag);
+cudaError_t launch_delta(const Args& a, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(a.B) * a.Sq * a.H;
+  constexpr int kRows = DeltaShape<T, HD>::kRows;
+  flash_bwd_delta_kernel<T, HD><<<static_cast<unsigned>((rows + kRows - 1) /
+                                                        kRows),
+                                  256, 0, stream>>>(
+      static_cast<const T*>(a.dout), static_cast<const T*>(a.out), a.delta,
+      rows, a.Sq, a.H, a.o_sb, a.o_ss, a.o_sh, a.u_sb, a.u_ss, a.u_sh);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_fp32(const Args& a, cudaStream_t stream) {
+  auto kdq = flash_bwd_dq_fp32_kernel<HD>;
+  auto kdkv = flash_bwd_dkv_fp32_kernel<HD>;
+  constexpr size_t s_dq = smem_dq_fp32<HD>(), s_dkv = smem_dkv_fp32<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(s_dq));
   if (err != cudaSuccess) return err;
@@ -640,70 +849,134 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                              static_cast<int>(s_dkv));
   if (err != cudaSuccess) return err;
   const int G = a.H / a.KV;
-  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
-          *v = static_cast<const T*>(a.v), *o = static_cast<const T*>(a.dout);
-  kdq<<<dim3((a.Sq + kBlock - 1) / kBlock, a.H, a.B), threads_for(tag), s_dq,
-        stream>>>(q, k, v, o, a.lse, a.delta, static_cast<T*>(a.dq), a.H, G,
-                  a.Sq, a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh,
-                  a.v_sb, a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.scale,
-                  a.causal);
+  const float *q = static_cast<const float*>(a.q),
+              *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v),
+              *o = static_cast<const float*>(a.dout);
+  kdq<<<dim3((a.Sq + kBlock - 1) / kBlock, a.H, a.B), kThreads32, s_dq,
+        stream>>>(q, k, v, o, a.lse, a.delta, static_cast<float*>(a.dq), a.H,
+                  G, a.Sq, a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss,
+                  a.k_sh, a.v_sb, a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh,
+                  a.scale, a.causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kdkv<<<dim3((a.Sk + kBlock - 1) / kBlock, a.KV, a.B), threads_for(tag),
-         s_dkv, stream>>>(q, k, v, o, a.lse, a.delta, static_cast<T*>(a.dk),
-                          static_cast<T*>(a.dv), a.H, G, a.Sq, a.Sk, a.q_sb,
-                          a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
-                          a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.scale,
-                          a.causal);
+  kdkv<<<dim3((a.Sk + kBlock - 1) / kBlock, a.KV, a.B), kThreads32, s_dkv,
+         stream>>>(q, k, v, o, a.lse, a.delta, static_cast<float*>(a.dk),
+                   static_cast<float*>(a.dv), a.H, G, a.Sq, a.Sk, a.q_sb,
+                   a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss,
+                   a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int HD>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  // the same tensors, boxed as each kernel streams or keeps them
+  CUtensorMap dq_q, dq_do, dq_k, dq_v, kv_q, kv_do, kv_k, kv_v;
+  const struct {
+    CUtensorMap* map;
+    const void* base;
+    int S, heads;
+    long long sb, ss, sh;
+    int rows;
+  } maps[] = {
+      {&dq_q, a.q, a.Sq, a.H, a.q_sb, a.q_ss, a.q_sh, kDqBlockM},
+      {&dq_do, a.dout, a.Sq, a.H, a.o_sb, a.o_ss, a.o_sh, kDqBlockM},
+      {&dq_k, a.k, a.Sk, a.KV, a.k_sb, a.k_ss, a.k_sh, kDqBlockN},
+      {&dq_v, a.v, a.Sk, a.KV, a.v_sb, a.v_ss, a.v_sh, kDqBlockN},
+      {&kv_q, a.q, a.Sq, a.H, a.q_sb, a.q_ss, a.q_sh, kDkvBlockM},
+      {&kv_do, a.dout, a.Sq, a.H, a.o_sb, a.o_ss, a.o_sh, kDkvBlockM},
+      {&kv_k, a.k, a.Sk, a.KV, a.k_sb, a.k_ss, a.k_sh, kDkvBlockN},
+      {&kv_v, a.v, a.Sk, a.KV, a.v_sb, a.v_ss, a.v_sh, kDkvBlockN}};
+  for (const auto& m : maps) {
+    const cudaError_t err = encode_tile_map(m.map, m.base, HD, m.S, m.heads,
+                                            a.B, m.sb, m.ss, m.sh, m.rows);
+    if (err != cudaSuccess) return err;
+  }
+  auto kdq = flash_bwd_dq_bf16_kernel<HD>;
+  auto kdkv = flash_bwd_dkv_bf16_kernel<HD>;
+  constexpr size_t s_dq = DqSmem<HD>::kDynamic, s_dkv = DkvSmem<HD>::kDynamic;
+  cudaError_t err = cudaFuncSetAttribute(
+      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(s_dq));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(s_dkv));
+  if (err != cudaSuccess) return err;
+  const int G = a.H / a.KV;
+  kdq<<<dim3((a.Sq + kDqBlockM - 1) / kDqBlockM, a.H, a.B), kWsThreads, s_dq,
+        stream>>>(dq_q, dq_do, dq_k, dq_v, a.lse, a.delta,
+                  static_cast<__nv_bfloat16*>(a.dq), a.H, G, a.Sq, a.Sk,
+                  a.scale, a.causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kdkv<<<dim3((a.Sk + kDkvBlockN - 1) / kDkvBlockN, a.KV, a.B), kWsThreads,
+         s_dkv, stream>>>(kv_q, kv_do, kv_k, kv_v, a.lse, a.delta,
+                          static_cast<__nv_bfloat16*>(a.dk),
+                          static_cast<__nv_bfloat16*>(a.dv), a.H, G, a.Sq,
+                          a.Sk, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <bool BF16, int HD>
+cudaError_t launch_all(const Args& a, cudaStream_t stream) {
+  const cudaError_t err =
+      BF16 ? launch_delta<__nv_bfloat16, HD>(a, stream)
+           : launch_delta<float, HD>(a, stream);
+  if (err != cudaSuccess) return err;
+  return BF16 ? launch_bf16<HD>(a, stream) : launch_fp32<HD>(a, stream);
+}
+
+template <bool BF16>
 cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 32: return launch_all<BF16, 32>(a, stream);
+    case 64: return launch_all<BF16, 64>(a, stream);
+    case 128: return launch_all<BF16, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. q and dout (B,Sq,H,hd), k/v (B,Sk,KV,hd) with
-// the given element strides (the head_dim stride must be 1; for bf16 every
-// other stride a multiple of 8 and the pointers 16-byte aligned); lse and
-// delta (B,H,Sq) fp32 contiguous; dq (B,Sq,H,hd) and dk/dv (B,Sk,KV,hd)
-// contiguous in the input dtype. Launches the dq kernel, then the dk/dv
-// kernel, on `stream`; returns the first cudaError_t.
+// dtype: 0 = fp32, 1 = bf16. q, dout and out (B,Sq,H,hd), k/v (B,Sk,KV,hd)
+// with the given element strides (the head_dim stride must be 1; for bf16,
+// which loads q, k, v and dout through TMA tensor maps and dout and out in
+// 16-byte vectors, their other strides multiples of 8 elements and their
+// pointers 16-byte aligned); lse (B,H,Sq)
+// fp32 contiguous; delta (B,H,Sq) fp32 contiguous, filled here with
+// rowsum(dout * out); dq (B,Sq,H,hd) and dk/dv (B,Sk,KV,hd) contiguous in
+// the input dtype. Launches the delta kernel, the dq kernel, then the
+// dk/dv kernel, on `stream`; returns the first cudaError_t.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    int dtype, int B, int Sq, int Sk, int H, int KV, int hd,
+    const void* out, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int dtype, int B, int Sq, int Sk, int H, int KV, int hd,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
+    long long u_sb, long long u_ss, long long u_sh,
     float scale, int causal, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       (causal && Sq != Sk))
     return cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dq, dk, dv, B, Sq, Sk, H, KV,
+  const Args a{q, k, v, dout, out, static_cast<const float*>(lse),
+               static_cast<float*>(delta), dq, dk, dv, B, Sq, Sk, H, KV,
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
-               o_ss, o_sh, scale, causal};
+               o_ss, o_sh, u_sb, u_ss, u_sh, scale, causal};
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_hd<float>(hd, a, st);
+  if (dtype == 0) return dispatch_hd<false>(hd, a, st);
   if (dtype == 1) {
-    const long long strides[] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                 v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+    const long long strides[] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                                 v_ss, v_sh, o_sb, o_ss, o_sh, u_sb, u_ss,
+                                 u_sh};
     for (long long s : strides)
       if (s % 8) return cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) %
+         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+         reinterpret_cast<uintptr_t>(out)) %
         16)
       return cudaErrorMisalignedAddress;
-    return dispatch_hd<__nv_bfloat16>(hd, a, st);
+    return dispatch_hd<true>(hd, a, st);
   }
   return cudaErrorInvalidValue;
 }

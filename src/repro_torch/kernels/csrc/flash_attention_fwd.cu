@@ -9,47 +9,58 @@
 // path's prefill (B=1, S=2048, H=16, hd=128, causal) the kernel must do
 // about 17 GFLOP against 25 MB of input and output, some 700 operations
 // per byte, so the tensor-core rate (989 TFLOP/s bf16) is the bound, not
-// memory (3.35 TB/s).
+// memory (3.35 TB/s): 0.0174 ms.
 //
-// What this design does about it: it keeps every intermediate out of
-// device memory. One block owns one (batch, head, 64-query tile) and walks
-// the 64-key tiles of K and V in a loop inside the block (on the TPU the
-// sequential `ik` grid axis carried the accumulators; on Hopper blocks run
-// in parallel and in no order, so the loop replaces that axis). The running
-// max `m`, sum `l` and the output accumulator stay in registers, in fp32.
-// Key tiles wholly above the causal diagonal are never loaded, and query
-// tiles are issued heaviest first so the causal triangle balances across
-// SMs.
+// What this design does about it (bf16): the Hopper shape of a fast
+// kernel (machinery in hopper.cuh). One block owns one (batch, head,
+// 128-query tile); query tiles are issued heaviest causal tile first.
+//  * A producer warp loads Q once and keeps a 2-stage ring of 128-key K
+//    and V tiles full with TMA (tensor maps over the reference layout with
+//    its own strides; zero fill past S handles ragged lengths), each stage
+//    completing on a full mbarrier and released by an empty one, so loads
+//    overlap the math.
+//  * Two consumer warpgroups of 64 query rows each run S = Q K^T on
+//    `wgmma` (A = Q and B = K from shared memory, both K-major), the
+//    online softmax in registers on the accumulator layout (exp2 with
+//    scale * log2(e) folded in; the mask is built only on the diagonal and
+//    ragged last tiles), then O += P V on `wgmma` with P rounded to bf16 in
+//    registers as the A operand (as the Pallas kernel casts p to v's dtype)
+//    and V read MN-major through the transpose flag.
+//  * `setmaxnreg` gives the producer 24 registers and the consumers up to
+//    240 (hopper.cuh says what it buys); the consumers hold O (64 a thread
+//    at hd=128), S (64) and P (32) in at most R165, with 0 spill bytes.
+// The running max, sum and O stay in registers in fp32; key tiles wholly
+// above the diagonal are never loaded. Tried and not kept: issuing the
+// next tile's S = Q K^T while P V runs (ptxas serialized the wgmmas,
+// warning C7514) and ping-pong turns of the two consumer warpgroups
+// around their products (no gain in a trial run).
 //
-// bf16 inputs run both products on the tensor cores with `mma.sync`
-// m16n8k16 (fp32 accumulation): each of 4 warps owns 16 query rows, holds
-// its Q tile as A fragments in registers, reads K and V tiles from padded
-// shared memory with `ldmatrix`, and turns the score accumulators into the
-// A fragments of P V without leaving registers (P is rounded to bf16 for
-// that product, as the Pallas kernel casts p to v's dtype). Tiles are
-// loaded synchronously: no cp.async/TMA pipeline and no wgmma yet, which is
-// what separates it from the bound.
+// The design it replaces (64-query tiles of 4 warps,
+// synchronous loads with two __syncthreads per key tile, `mma.sync`
+// m16n8k16, the mask built on every tile) took 0.3516 ms on the device
+// (0.3533 ms per call) at the main shape, 6.6x SDPA's 0.0537 ms, on an
+// NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md, kernel table).
 //
 // fp32 inputs run as fp32 FMAs on the CUDA cores (a bf16 or TF32 product
 // would break the fp32 tolerance of 2e-5): Q, K, V and the probability
 // tile in shared memory, 4x4 score and 4x(hd/16) output register tiles per
-// thread.
+// thread, 64-query blocks.
 //
-// Ragged lengths (S % 64 != 0) are masked in the kernel. Head dims 32, 64
-// and 128; out in the input dtype, lse in fp32.
+// Ragged lengths are masked in the kernel. Head dims 32, 64 and 128; out
+// in the input dtype, lse in fp32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace repro_mma;
+using namespace repro_hopper;
 
-constexpr int kBlockQ = 64;
+constexpr int kBlockQ = 64;   // the fp32 kernel's tiles
 constexpr int kBlockK = 64;
 constexpr float kNegInf = -1e30f;  // the reference kernel's mask value
 
@@ -221,231 +232,258 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ===================================================================== bf16
-constexpr int kWarps16 = kBlockQ / 16;       // one warp per 16 query rows
-constexpr int kThreads16 = kWarps16 * 32;
-static_assert(kBlockQ == kBlockK, "load_tile moves tiles of kBlockK rows");
-
-// max / sum across the 4 lanes of a quad, which share an accumulator row
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+// One block: consumer warpgroups 0 and 1 (64 query rows each) and
+// producer warpgroup 2 (one warp issues TMA, the rest idle).
+constexpr int kFwdBlockM = 128;
+constexpr int kFwdBlockN = 128;
+constexpr int kFwdStages = 2;
+constexpr int kFwdThreads = 384;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
-constexpr size_t smem_bytes_bf16() {
-  // rows padded by 16 bytes so the 8 rows an ldmatrix phase reads fall
-  // on distinct banks
-  return sizeof(__nv_bfloat16) * (kBlockQ + 2 * kBlockK) * (HD + 8);
-}
-
-// rows r0.. of a (rows, HD) bf16 matrix with the given row stride, 16-byte
-// vectors; rows past n are zero
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int r0,
-                                          int n, long long stride, int tid) {
-  constexpr int LD = HD + 8, VPR = HD / 8;
-  for (int e = tid; e < kBlockK * VPR; e += kThreads16) {
-    const int r = e / VPR, c = (e % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
+struct FwdSmem {
+  using QTile = Tile<HD, kFwdBlockM>;
+  using KVTile = Tile<HD, kFwdBlockN>;
+  static constexpr int kQ = 0;
+  static constexpr int kK = QTile::kBytes;                       // + stage
+  static constexpr int kV = kK + kFwdStages * KVTile::kBytes;    // + stage
+  static constexpr int kBars = kV + kFwdStages * KVTile::kBytes;
+  // q full, then kFwdStages full and kFwdStages empty barriers
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kFwdStages);
+  static constexpr size_t kDynamic = kBytes + 1024;  // for the alignment
+};
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads16)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                      int H, int G, int Sq, int Sk,
-                      long long q_sb, long long q_ss, long long q_sh,
-                      long long k_sb, long long k_ss, long long k_sh,
-                      long long v_sb, long long v_ss, long long v_sh,
-                      float scale, int causal) {
-  constexpr int LD = HD + 8;
-  constexpr int KSTEPS = HD / 16;   // k-steps of the score product
-  constexpr int NT = HD / 8;        // n-tiles of the output
-  constexpr int SN = kBlockK / 8;   // n-tiles of a score tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBlockQ * LD;
-  __nv_bfloat16* Vs = Ks + kBlockK * LD;
+                      int H, int G, int Sq, int Sk, float scale, int causal) {
+  using L = FwdSmem<HD>;
+  using QTile = typename L::QTile;
+  using KVTile = typename L::KVTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kFwdStages;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;  // accumulator row group, column pair
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4;
+  const int lane = tid % 32;
   const int iq = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = iq * kBlockQ;
-  const int qr0 = q0 + warp * 16 + g, qr1 = qr0 + 8;  // this thread's rows
+  const int q0 = iq * kFwdBlockM;
+  // causal: keys past the tile's last query are masked for every row
+  const int k_end = causal ? min(Sk, q0 + kFwdBlockM) : Sk;
+  const int nk = (k_end + kFwdBlockN - 1) / kFwdBlockN;
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + (h / G) * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + (h / G) * v_sh;
-
-  load_tile<HD>(Qs, qb, q0, Sq, q_ss, tid);
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
-  uint32_t qf[KSTEPS][4];  // this warp's 16 query rows as A fragments
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk)
-    ldmatrix_x4(qf[kk], Qs + (warp * 16 + lane % 16) * LD + kk * 16 +
-                            (lane / 16) * 8);
 
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: lane partials
-
-  const int k_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
-  const int nk = (k_end + kBlockK - 1) / kBlockK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<HD>(Ks, kb, k0, Sk, k_ss, tid);
-    load_tile<HD>(Vs, vb, k0, Sk, v_ss, tid);
-    __syncthreads();
-
-    // S = Q K^T: 16 x 64 per warp as 8 n-tiles of 8 keys
-    float s[SN][4];
-#pragma unroll
-    for (int j = 0; j < SN; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; kk += 2) {
-        uint32_t bk[4];  // b0, b1 of k-steps kk and kk + 1
-        ldmatrix_x4(bk, Ks + (8 * j + lane % 8) * LD + kk * 16 +
-                            (lane / 8) * 8);
-        mma_bf16(s[j], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[j], qf[kk + 1], bk[2], bk[3]);
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    setmaxnreg_dec<24>();
+    if (warp == 0 && lane == 0) {
+      mbar_arrive_expect_tx(q_full, QTile::kBytes);
+      QTile::load(smem + L::kQ, &map_q, q_full, q0, h, b);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kFwdStages;
+        mbar_wait(&empty[s], ((kt / kFwdStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * KVTile::kBytes);
+        KVTile::load(smem + L::kK + s * KVTile::kBytes, &map_k, &full[s],
+                     kt * kFwdBlockN, h / G, b);
+        KVTile::load(smem + L::kV + s * KVTile::kBytes, &map_v, &full[s],
+                     kt * kFwdBlockN, h / G, b);
       }
     }
+    return;
+  }
 
-    // scale and mask; s[j] holds (qr0, key), (qr0, key+1), (qr1, key),
-    // (qr1, key+1) with key = k0 + 8 j + 2 t
+  // ---------------------------------------------------------- consumers
+  setmaxnreg_inc<240>();
+  const int c = wg;  // rows 64 c .. 64 c + 63 of the query tile
+  const int g = lane / 4, t = lane % 4;
+  const int row_lo = q0 + 64 * c;  // this warpgroup's first query
+  const int qr0 = row_lo + 16 * warp + g, qr1 = qr0 + 8;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t q_base = smem_u32(smem + L::kQ);
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  // running max (log2 domain, scaled) and this lane's part of the sum
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kFwdStages;
+    const int k0 = kt * kFwdBlockN;
+    mbar_wait(&full[s], (kt / kFwdStages) & 1);
+    const uint32_t k_base = smem_u32(smem + L::kK + s * KVTile::kBytes);
+    const uint32_t v_base = smem_u32(smem + L::kV + s * KVTile::kBytes);
+
+    // S = Q K^T: 64 x kFwdBlockN
+    float sc[kFwdBlockN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<0>(sc, QTile::kmajor(q_base, 64 * c, kk),
+                  KVTile::kmajor(k_base, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // scale into the log2 domain; mask only the diagonal and ragged tiles.
+    // sc[4j + e] is (row e < 2 ? qr0 : qr1, key k0 + 8j + 2t + (e & 1)).
+    const bool need_mask = (causal && k0 + kFwdBlockN - 1 > row_lo) ||
+                           k0 + kFwdBlockN > Sk;
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int j = 0; j < SN; ++j) {
+    for (int j = 0; j < kFwdBlockN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * t + (e & 1);
-        const int row = e < 2 ? qr0 : qr1;
-        const bool valid = key < Sk && (!causal || key <= row);
-        s[j][e] = valid ? s[j][e] * scale : kNegInf;
+        float x = sc[4 * j + e] * scale_log2;
+        if (need_mask) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = e < 2 ? qr0 : qr1;
+          // keys past Sk do not exist and weigh 0; causally masked ones
+          // weigh exp(-1e30 - m) as in the reference kernel
+          x = key >= Sk ? -INFINITY : (causal && key > row ? kNegInf : x);
+        }
+        sc[4 * j + e] = x;
       }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
     const float mn0 = fmaxf(m0, quad_max(mx0));
     const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    const float a0 = fast_exp2(m0 - mn0), a1 = fast_exp2(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
-
-    // P as the A fragments of P V: n-tiles 2 kk and 2 kk + 1 of the score
-    // accumulators are exactly k-step kk's A fragment
-    uint32_t pf[kBlockK / 16][4];
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < SN; ++j) {
-      const int key = k0 + 8 * j + 2 * t;
-      // keys past Sk do not exist; causally masked ones weigh
-      // exp(-1e30 - m) as in the reference kernel
-      const float p0 = key < Sk ? expf(s[j][0] - mn0) : 0.f;
-      const float p1 = key + 1 < Sk ? expf(s[j][1] - mn0) : 0.f;
-      const float p2 = key < Sk ? expf(s[j][2] - mn1) : 0.f;
-      const float p3 = key + 1 < Sk ? expf(s[j][3] - mn1) : 0.f;
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      pf[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
-      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+    for (int j = 0; j < kFwdBlockN / 8; ++j) {
+      sc[4 * j] = fast_exp2(sc[4 * j] - mn0);
+      sc[4 * j + 1] = fast_exp2(sc[4 * j + 1] - mn0);
+      sc[4 * j + 2] = fast_exp2(sc[4 * j + 2] - mn1);
+      sc[4 * j + 3] = fast_exp2(sc[4 * j + 3] - mn1);
+      rs0 += sc[4 * j] + sc[4 * j + 1];
+      rs1 += sc[4 * j + 2] + sc[4 * j + 3];
     }
     l0 = l0 * a0 + rs0;
     l1 = l1 * a1 + rs1;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= a0;
+      o[4 * j + 1] *= a0;
+      o[4 * j + 2] *= a1;
+      o[4 * j + 3] *= a1;
     }
 
-    // O += P V, V read transposed: b0, b1 of n-tiles 2 n2 and 2 n2 + 1
+    // O += P V: P (rounded to bf16, as the reference casts p to v's dtype)
+    // stays in registers as the A operand; V is MN-major
+    uint32_t pa[kFwdBlockN / 16][4];
+    to_a_frags(pa, sc);
+    fence_regs(o);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-#pragma unroll
-      for (int n2 = 0; n2 < NT / 2; ++n2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, Vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) *
-                                       LD + n2 * 16 + (lane / 16) * 8);
-        mma_bf16(acc[2 * n2], pf[kk], bv[0], bv[1]);
-        mma_bf16(acc[2 * n2 + 1], pf[kk], bv[2], bv[3]);
-      }
-    }
+    for (int kk = 0; kk < kFwdBlockN / 16; ++kk)
+      wgmma_rs<1>(o, pa[kk], KVTile::mnmajor(v_base, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
   // out is (B, Sq, H, hd) contiguous, lse (B, H, Sq)
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const float ls0 = l0 == 0.f ? 1.f : l0, ls1 = l1 == 0.f ? 1.f : l1;
+  const float inv0 = 1.f / ls0, inv1 = 1.f / ls1;
+  constexpr float kLn2 = 0.6931471805599453f;
   if (qr0 < Sq) {
     __nv_bfloat16* ob = out + ((static_cast<long long>(b) * Sq + qr0) * H + h) * HD;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(ob + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[n][0] / ls0, acc[n][1] / ls0);
-    if (t == 0) lse[(static_cast<long long>(b) * H + h) * Sq + qr0] = m0 + logf(ls0);
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(ob + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    if (t == 0)
+      lse[(static_cast<long long>(b) * H + h) * Sq + qr0] = m0 * kLn2 + logf(ls0);
   }
   if (qr1 < Sq) {
     __nv_bfloat16* ob = out + ((static_cast<long long>(b) * Sq + qr1) * H + h) * HD;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(ob + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2] / ls1, acc[n][3] / ls1);
-    if (t == 0) lse[(static_cast<long long>(b) * H + h) * Sq + qr1] = m1 + logf(ls1);
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(ob + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    if (t == 0)
+      lse[(static_cast<long long>(b) * H + h) * Sq + qr1] = m1 * kLn2 + logf(ls1);
   }
 }
 
 // =================================================================== launch
-template <int HD> auto kernel_for(const float*) { return flash_fwd_fp32_kernel<HD>; }
-template <int HD> auto kernel_for(const __nv_bfloat16*) {
-  return flash_fwd_bf16_kernel<HD>;
-}
-template <int HD> constexpr size_t smem_for(const float*) { return smem_bytes_fp32<HD>(); }
-template <int HD> constexpr size_t smem_for(const __nv_bfloat16*) {
-  return smem_bytes_bf16<HD>();
-}
-constexpr int threads_for(const float*) { return kThreads32; }
-constexpr int threads_for(const __nv_bfloat16*) { return kThreads16; }
-
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int B, int Sq, int Sk, int H, int KV,
-                   long long q_sb, long long q_ss, long long q_sh,
-                   long long k_sb, long long k_ss, long long k_sh,
-                   long long v_sb, long long v_ss, long long v_sh,
-                   float scale, int causal, cudaStream_t stream) {
-  constexpr const T* tag = nullptr;
-  constexpr size_t smem = smem_for<HD>(tag);
-  auto kern = kernel_for<HD>(tag);
+template <int HD>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out,
+                        float* lse, int B, int Sq, int Sk, int H, int KV,
+                        long long q_sb, long long q_ss, long long q_sh,
+                        long long k_sb, long long k_ss, long long k_sh,
+                        long long v_sb, long long v_ss, long long v_sh,
+                        float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes_fp32<HD>();
+  auto kern = flash_fwd_fp32_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  kern<<<grid, threads_for(tag), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, H, H / KV, Sq, Sk,
-      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal);
+  kern<<<grid, kThreads32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, H / KV,
+      Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+      causal);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
+                        float* lse, int B, int Sq, int Sk, int H, int KV,
+                        long long q_sb, long long q_ss, long long q_sh,
+                        long long k_sb, long long k_ss, long long k_sh,
+                        long long v_sb, long long v_ss, long long v_sh,
+                        float scale, int causal, cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t err =
+      encode_tile_map(&map_q, q, HD, Sq, H, B, q_sb, q_ss, q_sh, kFwdBlockM);
+  if (err == cudaSuccess)
+    err = encode_tile_map(&map_k, k, HD, Sk, KV, B, k_sb, k_ss, k_sh,
+                          kFwdBlockN);
+  if (err == cudaSuccess)
+    err = encode_tile_map(&map_v, v, HD, Sk, KV, B, v_sb, v_ss, v_sh,
+                          kFwdBlockN);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = FwdSmem<HD>::kDynamic;
+  auto kern = flash_fwd_bf16_kernel<HD>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kFwdBlockM - 1) / kFwdBlockM, H, B);
+  kern<<<grid, kFwdThreads, smem, stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), lse, H, H / KV,
+      Sq, Sk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <bool BF16>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         void* out, float* lse, int B, int Sq, int Sk, int H,
                         int KV, long long q_sb, long long q_ss, long long q_sh,
@@ -454,9 +492,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         float scale, int causal, cudaStream_t stream) {
 #define REPRO_FA_CASE(HD)                                                     \
   case HD:                                                                    \
-    return launch<T, HD>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_sb, q_ss,     \
-                         q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,     \
-                         causal, stream);
+    return (BF16 ? launch_bf16<HD> : launch_fp32<HD>)(                        \
+        q, k, v, out, lse, B, Sq, Sk, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss,    \
+        k_sh, v_sb, v_ss, v_sh, scale, causal, stream);
   switch (hd) {
     REPRO_FA_CASE(32)
     REPRO_FA_CASE(64)
@@ -470,10 +508,11 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16. q (B,Sq,H,hd), k/v (B,Sk,KV,hd) with the
-// given element strides (the head_dim stride must be 1; for bf16 every
-// other stride a multiple of 8 and the pointers 16-byte aligned); out
-// (B,Sq,H,hd) contiguous in the input dtype; lse (B,H,Sq) fp32. Returns
-// the cudaError_t of the launch.
+// given element strides (the head_dim stride must be 1; for bf16, which
+// loads through TMA tensor maps, every other stride a multiple of 8
+// elements and the pointers 16-byte aligned); out (B,Sq,H,hd) contiguous
+// in the input dtype; lse (B,H,Sq) fp32. Returns the cudaError_t of the
+// launch.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int dtype, int B, int Sq, int Sk, int H, int KV, int hd,
@@ -487,7 +526,7 @@ extern "C" int repro_flash_attention_fwd(
   auto st = static_cast<cudaStream_t>(stream);
   auto* lse_f = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, out, lse_f, B, Sq, Sk, H, KV, q_sb,
+    return dispatch_hd<false>(hd, q, k, v, out, lse_f, B, Sq, Sk, H, KV, q_sb,
                               q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                               scale, causal, st);
   if (dtype == 1) {
@@ -498,9 +537,9 @@ extern "C" int repro_flash_attention_fwd(
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v)) % 16)
       return cudaErrorMisalignedAddress;
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, lse_f, B, Sq, Sk, H,
-                                      KV, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                      v_sb, v_ss, v_sh, scale, causal, st);
+    return dispatch_hd<true>(hd, q, k, v, out, lse_f, B, Sq, Sk, H, KV, q_sb,
+                             q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                             scale, causal, st);
   }
   return cudaErrorInvalidValue;
 }

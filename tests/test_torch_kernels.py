@@ -113,20 +113,37 @@ def cuda():
     return torch.device("cuda")
 
 
+def _qkv(q, k, v, fused):
+    """q, k, v as they are, or as strided views of one fused
+    (B, S, H + 2 KV, hd) tensor, as a fused QKV projection gives them."""
+    if not fused:
+        return q, k, v
+    H, KV = q.shape[2], k.shape[2]
+    qkv = torch.cat([q, k, v], dim=2)
+    return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
-    (1, 256, 16, 8, 128, True),
-    (2, 200, 4, 2, 64, True),      # ragged: S % 64 != 0
-    (1, 130, 4, 4, 32, False),
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,fused", [
+    (1, 256, 16, 8, 128, True, False),
+    (2, 200, 4, 2, 64, True, False),      # ragged: S % 64 != 0
+    (1, 130, 4, 4, 32, False, False),
+    (1, 1, 4, 2, 128, True, False),       # one token
+    (1, 129, 4, 2, 128, True, False),     # one past a 128-query tile
+    (2, 2048, 16, 8, 128, True, False),   # qwen3-1.7b's training shape
+    (1, 2048, 32, 32, 64, True, False),   # zamba2-1.2b's attention
+    (1, 300, 8, 1, 128, True, False),     # MQA
+    (2, 160, 4, 2, 32, True, False),      # hd=32, causal
+    (2, 192, 8, 2, 128, True, True),      # views of one fused QKV tensor
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, B, S, H, KV, hd, causal,
-                                            dtype):
+                                            fused, dtype):
     from repro_torch.kernels import flash_attention as fa
     tol = _TOL[dtype]
     _, (q, k, v) = _inputs(3, [(B, S, H, hd), (B, S, KV, hd),
                                (B, S, KV, hd)], dtype)
-    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    q, k, v = _qkv(q.to(cuda), k.to(cuda), v.to(cuda), fused)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     want_out, want_lse = ref.flash_attention_ref(q, k, v, causal)
     torch.cuda.synchronize()

@@ -377,15 +377,40 @@ def cuda():
     return torch.device("cuda")
 
 
+def _flash_inputs(device, Bq, Sq, Sk, H, KV, hd, dtype, fused=False):
+    """q, k, v, dO from one seed; with ``fused``, q, k and v are strided
+    views of one (B, S, H + 2 KV, hd) tensor, as a fused QKV projection
+    gives them."""
+    g = torch.Generator(device=device).manual_seed(5)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((Bq, Sq, H, hd), generator=g, device=device).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((Bq, Sk, KV, hd), generator=g, device=device).to(dt)
+            for _ in range(2))
+    if fused:
+        qkv = torch.cat([q, k, v], dim=2)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    return q, k, v, do
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bq,Sq,Sk,H,KV,hd,causal,dtype,tol,norm_tol", [
-    (1, 256, 256, 16, 8, 128, True, "bfloat16", 2e-2, 1e-2),
-    (2, 200, 200, 4, 2, 64, True, "bfloat16", 2e-2, 1e-2),   # ragged GQA
-    (2, 192, 320, 4, 2, 64, False, "float32", 3e-4, 3e-4),   # bidirectional
-    (1, 100, 100, 4, 1, 32, True, "float32", 3e-4, 3e-4),    # MQA
+@pytest.mark.parametrize("Bq,Sq,Sk,H,KV,hd,causal,dtype,tol,norm_tol,fused", [
+    (1, 256, 256, 16, 8, 128, True, "bfloat16", 2e-2, 1e-2, False),
+    (2, 200, 200, 4, 2, 64, True, "bfloat16", 2e-2, 1e-2, False),  # ragged
+    (2, 192, 320, 4, 2, 64, False, "float32", 3e-4, 3e-4, False),  # bidir.
+    (1, 100, 100, 4, 1, 32, True, "float32", 3e-4, 3e-4, False),   # MQA
+    (1, 129, 129, 4, 2, 128, True, "bfloat16", 2e-2, 1e-2, False),  # tile+1
+    # qwen3-1.7b's training shape
+    (2, 2048, 2048, 16, 8, 128, True, "bfloat16", 2e-2, 1e-2, False),
+    # zamba2-1.2b's attention: MHA at hd=64
+    (1, 2048, 2048, 32, 32, 64, True, "bfloat16", 2e-2, 1e-2, False),
+    (1, 300, 300, 8, 1, 128, True, "bfloat16", 2e-2, 1e-2, False),  # MQA
+    (2, 160, 160, 4, 2, 32, True, "bfloat16", 2e-2, 1e-2, False),   # hd=32
+    (2, 192, 192, 8, 2, 128, True, "bfloat16", 2e-2, 1e-2, True),   # fused
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(cuda, Bq, Sq, Sk, H, KV, hd,
-                                                causal, dtype, tol, norm_tol):
+                                                causal, dtype, tol, norm_tol,
+                                                fused):
     """max |kernel - plain| <= tol * max |plain| and |kernel - plain| /
     |plain| (Frobenius) <= norm_tol for dq, dk, dv. bf16 rounds p and ds
     to bf16 for their products; the norm bound holds the many small
@@ -393,12 +418,7 @@ def test_flash_bwd_kernel_matches_plain_on_card(cuda, Bq, Sq, Sk, H, KV, hd,
     on an H100: 2.5e-3 to 2.7e-3 at the bf16 cases, so 1e-2 leaves about
     3.7x)."""
     from repro_torch.kernels import flash_attention as fa
-    g = torch.Generator(device=cuda).manual_seed(5)
-    dt = getattr(torch, dtype)
-    q, do = (torch.randn((Bq, Sq, H, hd), generator=g, device=cuda).to(dt)
-             for _ in range(2))
-    k, v = (torch.randn((Bq, Sk, KV, hd), generator=g, device=cuda).to(dt)
-            for _ in range(2))
+    q, k, v, do = _flash_inputs(cuda, Bq, Sq, Sk, H, KV, hd, dtype, fused)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
@@ -409,6 +429,39 @@ def test_flash_bwd_kernel_matches_plain_on_card(cuda, Bq, Sq, Sk, H, KV, hd,
         assert _rel(gt, wt) <= tol
         assert float((gt.float() - wt.float()).norm()
                      / wt.float().norm()) <= norm_tol
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_single_token_on_card(cuda):
+    """S=1: one key, so the softmax is constant and dq = dk = 0 exactly
+    (ds = p (dp - delta) with dp = dO.v = delta). The kernel's dp (a
+    tensor-core sum) and delta (the delta kernel's sum) round in different
+    orders, so dq and dk are 0 to fp32 rounding of a 128-term dot product
+    of unit normals; dv = dO, as the plain version's."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _flash_inputs(cuda, 1, 1, 1, 4, 2, 128, "bfloat16")
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    assert float(dq.float().abs().max()) <= 1e-5
+    assert float(dk.float().abs().max()) <= 1e-5
+    assert _rel(dv, want[2]) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_bwd_kernel_is_deterministic_on_card(cuda, dtype):
+    """No atomics: two backward calls on the same inputs give bit-equal
+    dq, dk and dv (GQA, so dk and dv are sums over a group of heads)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _flash_inputs(cuda, 2, 520, 520, 8, 2, 128, dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
