@@ -8,16 +8,19 @@ Phases, each of which exits non-zero on failure:
 1. card:    print the card's name and power limit (nvidia-smi);
 2. build:   build the hand-written kernels from src/repro_torch/kernels/csrc
             with nvcc for sm_90a; print every kernel's ptxas lines
-            (registers, spill bytes) and the flash kernels' HGMMA / HMMA
-            counts from `cuobjdump -sass`;
+            (registers, spill bytes) and the flash and SSD kernels' HGMMA
+            / HMMA counts from `cuobjdump -sass`;
 3. kernels: hold each kernel against its plain PyTorch version on the card
             (flash-attention forward: out and lse; flash-attention
             backward: dq, dk, dv; RMSNorm; the SSD scan at the mamba2 and
-            zamba2 shapes; event select, bit for bit, at the fleet
+            zamba2 shapes, on views of one conv output as the Mamba2 block
+            cuts them, and two calls bit for bit; event select, bit for
+            bit, at the fleet
             engine's widths) and time the kernel, the plain version and,
             where one exists, one PyTorch library call, with TFLOP/s and
             the share of the bound reached (the flash forward also at the
-            training shape and at zamba2's); the host cost of RMSNorm's
+            training shape and at zamba2's; the SSD scan by stage, with its
+            host time per call); the host cost of RMSNorm's
             dispatch through its autograd Function; the SSD backward
             (autograd over the plain version);
 4-7b. qwen3-1.7b (dense), full width:
@@ -125,14 +128,23 @@ SSM_PARITY_TOL = {"loss": 1e-3, "grad_norm": 2e-2, "grad_leaf": 1.5e-1}
 # tests/test_kernels.py holds the Pallas scan, bf16 as the flash backward
 SSD_TOL = {"bfloat16": (2e-2, 1e-2), "float32": (5e-4, 5e-4)}
 # (b, s, h, p, g, n, chunk, dtype): the mamba2-1.3b prefill and train
-# shapes, zamba2-1.2b's, grouped B/C, one short ragged tile, fp32
+# shapes, zamba2-1.2b's, grouped B/C, one short ragged tile, many of the
+# bf16 kernels' 128-token chunks with a ragged tail, a sequence shorter
+# than one, grouped B/C at the SMOKE widths (n=16, p=32), fp32
 SSD_CASES = [(1, 2048, 64, 64, 1, 128, 256, "bfloat16"),
              (2, 2048, 64, 64, 1, 128, 256, "bfloat16"),
              (1, 2048, 64, 64, 1, 64, 256, "bfloat16"),
              (1, 256, 8, 64, 2, 32, 128, "bfloat16"),
              (1, 32, 64, 64, 1, 128, 32, "bfloat16"),
+             (1, 2000, 8, 64, 1, 128, 250, "bfloat16"),
+             (2, 100, 8, 64, 2, 64, 100, "bfloat16"),
+             (2, 640, 8, 32, 4, 16, 128, "bfloat16"),
              (2, 128, 4, 32, 2, 16, 64, "float32"),
              (1, 200, 8, 64, 2, 64, 200, "float32")]
+# x, B and C as views of one conv output, as `models.ssm.mamba2_block`
+# cuts them: mamba2-1.3b's prefill, and a ragged grouped SMOKE-width one
+SSD_VIEW_CASES = [(1, 2048, 64, 64, 1, 128, 256, "bfloat16"),
+                  (2, 200, 8, 32, 2, 16, 200, "bfloat16")]
 
 SEQ, N_TOKENS, N_BATCH, PROMPT_LEN = 2048, 16, 4, 32
 TRAIN_STEPS, TRAIN_BATCH = 4, 2
@@ -245,7 +257,7 @@ def device_profile(torch, fn, n: int, count=None):
 CATEGORIES = (("flash_fwd_", "flash forward (ours)"),
               ("flash_bwd_", "flash backward (ours)"),
               ("rmsnorm_kernel", "RMSNorm (ours)"),
-              ("ssd_scan_kernel", "SSD scan (ours)"),
+              ("ssd_", "SSD scan (ours)"),
               ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"),
               ("copy_kernel", "copies and dtype casts"),
               ("reduce_kernel", "reductions"),
@@ -275,7 +287,8 @@ def say_profile(what: str, wall_ms: float, device_ms: float, ranked,
 
 def kernel_name(mangled: str) -> str:
     """flash_fwd_bf16_kernel<128> for the mangled name of that kernel
-    (ssd_scan_kernel<f, 32> for one with a type and a value): the last
+    (flash_bwd_delta_kernel<f, 32> for one with a type and a value,
+    ssd_out_bf16_kernel<128, 64> for one with two values): the last
     length-prefixed name that ends in _kernel (a hash before it may read
     as a longer one), with its template arguments."""
     found = None
@@ -286,16 +299,27 @@ def kernel_name(mangled: str) -> str:
     if found is None:
         return mangled[:80]
     name, tail = found
-    a = re.match(r"I(\w+?)E", tail)
-    args = re.sub(r"^Li", "", a.group(1)).replace("Li", ", ") if a else ""
-    return f"{name}<{args}>" if args else name
+    args, i = [], 1
+    while tail.startswith("I") and i < len(tail) and tail[i] != "E":
+        if tail.startswith("Li", i):           # an int: Li<value>E
+            j = tail.index("E", i)
+            args.append(tail[i + 2:j])
+            i = j + 1
+        elif tail[i].isdigit():                # a named type: <len><name>
+            k = re.match(r"\d+", tail[i:]).group()
+            args.append(tail[i + len(k):i + len(k) + int(k)])
+            i += len(k) + int(k)
+        else:                                  # a builtin type: f, d, ...
+            args.append(tail[i])
+            i += 1
+    return f"{name}<{', '.join(args)}>" if args else name
 
 
 def say_build(build) -> None:
     """The ptxas lines (registers, shared memory, spill bytes) of every
     kernel of the last build, each under its source and beside its entry's
     name, then the HGMMA (wgmma) and HMMA (mma.sync) instructions of each
-    flash kernel in the library's SASS."""
+    flash and SSD kernel in the library's SASS."""
     entry = ""
     for line in build.last_build_log.splitlines():
         line = line.strip()
@@ -320,7 +344,7 @@ def say_build(build) -> None:
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             func = line.split("Function :")[1].strip()
-        elif "flash" in func:
+        elif "flash" in func or "ssd_" in func:
             n = per.setdefault(func, [0, 0])
             n[0] += "HGMMA" in line
             n[1] += " HMMA" in line
@@ -1149,35 +1173,94 @@ def main() -> int:
 
     ssd_errs = []
 
-    def ssd_inputs(b, s, h, p, g, n, dtype, seed=6):
+    def ssd_inputs(b, s, h, p, g, n, dtype, seed=6, views=False):
+        """x, dt, A, B, C as tests/test_kernels.py draws them; with
+        `views`, x, B and C are views of one (b, s, h p + 2 g n) tensor,
+        cut as `models.ssm.mamba2_block` cuts its conv output."""
         gen.manual_seed(seed)
 
         def normal(*shape):
             return torch.randn(shape, generator=gen, device=dev)
-        x = normal(b, s, h, p).to(dtype)
+        if views:
+            xbc = normal(b, s, h * p + 2 * g * n).to(dtype)
+            x = xbc[..., :h * p].reshape(b, s, h, p)
+            Bm = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+            Cm = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+        else:
+            x = normal(b, s, h, p).to(dtype)
         dt = F.softplus(normal(b, s, h))
         A = -torch.exp(normal(h) * 0.5)
-        return (x, dt, A, normal(b, s, g, n).to(dtype),
-                normal(b, s, g, n).to(dtype))
+        if not views:
+            Bm, Cm = (normal(b, s, g, n).to(dtype),
+                      normal(b, s, g, n).to(dtype))
+        return x, dt, A, Bm, Cm
 
-    for (b, s, h, p, g, n, chunk, dtype) in SSD_CASES:
-        ins = ssd_inputs(b, s, h, p, g, n, getattr(torch, dtype))
+    for case in ([c + (False,) for c in SSD_CASES]
+                 + [c + (True,) for c in SSD_VIEW_CASES]):
+        b, s, h, p, g, n, chunk, dtype, views = case
+        ins = ssd_inputs(b, s, h, p, g, n, getattr(torch, dtype), views=views)
+        if views and ins[0].stride(1) != h * p + 2 * g * n:
+            fail("the SSD inputs are not views of one conv output")
         got = ss.ssd_scan_fwd(*ins, chunk)
         want = ref.ssd_scan_ref(*ins, chunk)
         torch.cuda.synchronize()
         ssd_errs.append(compare_scaled(
             torch, f"ssd b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk} "
-            f"{dtype}", got, want, *SSD_TOL[dtype]))
+            f"{dtype}{' (views of xbc)' if views else ''}", got, want,
+            *SSD_TOL[dtype]))
         del ins, got, want
+
+    def stage_name(name: str) -> str:
+        m = re.search(r"\w+_kernel(<[^>]*>)?", name)
+        return m.group(0) if m else name[:60]
+
+    def ssd_cost(b, s, h, p, g, n, chunk):
+        """The bound's products and bytes: x, y in bf16; dt, A; B, C."""
+        flops = ssd_flops(b, s, h, p, g, n, chunk)
+        nbytes = (2 * 2 * b * s * h * p + 4 * (b * s * h + h)
+                  + 2 * 2 * b * s * g * n)
+        return flops, nbytes
+
+    # the main path's shapes (mamba2-1.3b prefill and train, zamba2-1.2b)
+    # on views of one conv output, as the Mamba2 block hands them over:
+    # device time by stage, host time per call
+    ssd_dev_ms = []
+    for b, s, h, p, g, n, chunk, _ in SSD_CASES[:3]:
+        ins = ssd_inputs(b, s, h, p, g, n, torch.bfloat16, views=True)
+        flops, nbytes = ssd_cost(b, s, h, p, g, n, chunk)
+        bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+        _, ranked = device_profile(
+            torch, lambda: ss.ssd_scan_fwd(*ins, chunk), 10)
+        stages = [(stage_name(nm), t) for nm, t in ranked if "ssd_" in nm]
+        if not stages:
+            fail("the profiler saw no SSD kernel on the device")
+        dev_ms = sum(t for _, t in stages)
+        ssd_dev_ms.append(dev_ms)
+        host = host_ms(torch, lambda: ss.ssd_scan_fwd(*ins, chunk))
+        say(f"  ssd_scan_fwd @ b={b} s={s} h={h} p={p} g={g} n={n} bf16 "
+            f"(views of xbc): {dev_ms:.4f} ms on the device in "
+            f"{len(stages)} kernels, {host:.4f} ms of host time per call "
+            f"(5 tensor maps, 3 launches); bound {bound * 1e3:.4f} ms: "
+            f"{dev_ms / (bound * 1e3):.1f}x the bound, "
+            f"{flops / (dev_ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+            f"{nbytes / (dev_ms * 1e-3) / 1e9:.0f} GB/s")
+        for nm, t in stages:
+            say(f"    {t:.4f} ms  {nm}")
+        del ins
 
     b, s, h, p, g, n, chunk, _ = SSD_CASES[0]       # mamba2-1.3b prefill
     ins = ssd_inputs(b, s, h, p, g, n, torch.bfloat16)
+    first = ss.ssd_scan_fwd(*ins, chunk)
+    again = ss.ssd_scan_fwd(*ins, chunk)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        fail("two calls of the SSD kernel differ")
+    say("  ssd_scan_fwd: two calls at the prefill shape bit for bit")
+    del first, again
     ms = time_ms(torch, lambda: ss.ssd_scan_fwd(*ins, chunk))
     plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*ins, chunk),
                        warmup=2, iters=10)
-    flops = ssd_flops(b, s, h, p, g, n, chunk)
-    nbytes = (2 * 2 * ins[0].numel() + 4 * (ins[1].numel() + h)
-              + 2 * (ins[3].numel() + ins[4].numel()))   # x, y; dt, A; B, C
+    flops, nbytes = ssd_cost(b, s, h, p, g, n, chunk)
     bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
     report["ssd_scan_fwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1187,10 +1270,9 @@ def main() -> int:
         bound_by=("operations" if flops / PEAK_FLOPS["bfloat16"]
                   >= nbytes / HBM_BYTES_PER_S else "bytes"),
         library_ms=None)     # no single PyTorch call computes the SSD scan
-    _, ranked = device_profile(torch, lambda: ss.ssd_scan_fwd(*ins, chunk), 5)
     say(f"  ssd_scan_fwd @ b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk} "
-        f"bf16: kernel {ms:.4f} ms per call "
-        f"({kernel_ms(ranked, 'ssd_scan_kernel'):.4f} ms on the device), "
+        f"bf16: kernel {ms:.4f} ms per call ({ssd_dev_ms[0]:.4f} ms on the "
+        f"device, above; a call shorter than its host time waits for it), "
         f"plain {plain_ms:.4f} ms, no library call, bound "
         f"{bound * 1e3:.4f} ms ({flops / 1e9:.2f} GFLOP / 989 TFLOP/s; "
         f"{nbytes / 1e6:.1f} MB / 3.35 TB/s); kernel at "

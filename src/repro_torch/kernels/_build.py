@@ -117,8 +117,10 @@ def library() -> ctypes.CDLL:
                                           ctypes.c_float, i32, ptr]
         lib.repro_rmsnorm_fwd.restype = i32
         lib.repro_ssd_scan_fwd.argtypes = (
-            [ptr] * 6 + [i32] * 7 + [i64] * 12 + [ptr])
+            [ptr] * 7 + [i64] + [i32] * 7 + [i64] * 12 + [ptr])
         lib.repro_ssd_scan_fwd.restype = i32
+        lib.repro_ssd_scan_workspace_bytes.argtypes = [i32] * 6
+        lib.repro_ssd_scan_workspace_bytes.restype = i64
         lib.repro_event_select_fwd.argtypes = [ptr, ptr, ptr, i64, i32, i32,
                                                ptr]
         lib.repro_event_select_fwd.restype = i32

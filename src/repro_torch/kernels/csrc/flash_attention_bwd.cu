@@ -45,8 +45,9 @@
 // lengths) on full/empty mbarriers; two consumer warpgroups of 64 rows
 // each run the products, A and B from shared memory for the score
 // products and the bf16-rounded P^T, dS^T (dS) from the accumulators in
-// registers as the A operand of the gradient products (as the Pallas
-// kernels cast p and ds to the inputs' dtype), the MN-major B through the
+// registers as the A operand of the gradient products (a deliberate
+// difference, ROADMAP: the Pallas backward's products are fp32, since it
+// casts ds to k's dtype after k became fp32), the MN-major B through the
 // transpose flag; `setmaxnreg` as in the forward. q.k and dO.v are
 // computed in both kernels: the two-pass design executes 14 of the 10
 // units of product work (1.4x the bound's count).

@@ -1,30 +1,37 @@
 // Hopper (sm_90a) machinery shared by the bf16 flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu).
+// (flash_attention_fwd.cu, flash_attention_bwd.cu) and the stages of the
+// bf16 SSD chunked scan (ssd_scan.cu).
 //
 // What each part is for:
 //  * `encode_tile_map` (host, once per map and call): a TMA tensor map
 //    over the reference layout (B, S, heads, hd), described to
 //    the hardware as the 4-D tensor (hd, S, heads, B) with the tensor's own
-//    strides, so strided views (q, k, v cut from one fused projection) and
-//    the GQA head mapping need no copy. A box is `rows` x 64 columns (x 32
-//    at hd = 32); TMA fills rows past S with zeros, which is how ragged
-//    lengths arrive. The swizzle
-//    is 128B for 64-column boxes and 64B for 32-column ones: the same mode
+//    strides, so strided views (q, k, v cut from one fused projection; the
+//    SSD's x, B and C cut from the conv output) and the GQA head mapping
+//    need no copy. A box is `rows` x 64 columns (x hd below 64); TMA fills
+//    rows past S with zeros, which is how ragged lengths arrive. The
+//    swizzle spans one box row: 128B for 64-column boxes, 64B for 32-column
+//    and 32B for 16-column ones (the SSD's d_state 16): the same mode
 //    goes into the wgmma descriptors below, and every tile's shared-memory
 //    base is 1024-byte aligned so the pattern starts at its row 0.
+//    `swizzled` gives the byte offset TMA used for a (row, column), for
+//    threads that read a tile themselves.
 //  * `tma_load_4d`: one `cp.async.bulk.tensor` box, completing on an
-//    mbarrier with its byte count (`complete_tx`).
+//    mbarrier with its byte count (`complete_tx`); `tma_store_4d` the
+//    other way, from a tile threads wrote (the SSD output), in bulk
+//    groups.
 //  * `mbar_*`: the full/empty barrier rings. A full barrier expects the
 //    producer's arrival plus the stage's bytes; an empty barrier expects one
 //    arrival from each consumer warp once its wgmmas have read the stage.
 //  * `Tile<HD, ROWS>`: the layout TMA writes (boxes of ROWS rows, one after
 //    another) and the wgmma descriptors that read it: K-major (the head dim
-//    is the product's depth: Q, K, dO, V in Q K^T and dO V^T) and MN-major
-//    (the rows are the depth: V in P V, K in dS K, Q and dO in dS^T Q and
-//    P^T dO, with the transpose flag set).
+//    is the product's depth: Q, K, dO, V in Q K^T and dO V^T; C and B in
+//    C B^T, C and S in C S) and MN-major (the rows are the depth: V in P V,
+//    K in dS K, Q and dO in dS^T Q and P^T dO, x in scores x, B in the
+//    SSD's chunk states, with the transpose flag set).
 //  * `wgmma_ss` / `wgmma_rs`: m64nNk16 bf16 -> fp32 products, A from
-//    shared memory (N = 64, 128) or from registers (N = 32, 64, 128), with
-//    the B-transpose flag as a template argument; `wgmma_fence`,
+//    shared memory (N = 32, 64, 128) or from registers (N = 16, 32, 64,
+//    128), with the B-transpose flag as a template argument; `wgmma_fence`,
 //    `wgmma_commit`, `wgmma_wait` and `fence_regs`, which keeps the compiler
 //    from moving accumulator reads across the asynchronous product.
 //  * The accumulator of m64nN gives warp w of the warpgroup rows 16w + g and
@@ -79,7 +86,8 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A bf16 (B, S, heads, hd) tensor with element strides (sb, ss, sh) and a
-// contiguous head dim, read in boxes of `rows` rows of one (batch, head).
+// contiguous head dim, read or written in boxes of `rows` rows of one
+// (batch, head); hd is 16, 32 or a multiple of 64.
 inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int hd,
                                    int S, int heads, int B, long long sb,
                                    long long ss, long long sh, int rows) {
@@ -99,7 +107,9 @@ inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int hd,
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -182,6 +192,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 4-D tensor map from `src` to (column, row, head, batch);
+// rows past the tensor's end are not written. Issued by one thread, in
+// bulk groups (`bulk_commit`); `bulk_wait_read<N>` returns once at most N
+// of its groups still read shared memory, `bulk_wait<0>` once all are
+// written. Shared memory written by threads is first made visible to the
+// copy with `fence_async_smem`.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // named barriers (0 is __syncthreads): `count` threads in all, some that
 // arrive and go on, some that wait
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
@@ -201,18 +242,29 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle mode (1: 128B, 2: 64B)
+// byte offsets (16-byte units) and the swizzle mode (1: 128B, 2: 64B,
+// 3: 32B)
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo, int swizzle) {
-  const uint64_t layout = swizzle == 128 ? 1 : 2;
+  const uint64_t layout = swizzle == 128 ? 1 : swizzle == 64 ? 2 : 3;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
 }
 
+// The byte offset TMA gives (row, byte b of the row) in a tile of rows of
+// SW bytes written with the SW-byte swizzle (SW = 32, 64, 128): the
+// 16-byte chunk index is XORed with address bits 7 and up, which for
+// 128-byte rows is the row within its 8-row group.
+template <int SW>
+__device__ __forceinline__ int swizzled(int row, int b) {
+  const int o = row * SW + b;
+  return o ^ (((o >> 7) & (SW / 16 - 1)) << 4);
+}
+
 // The shared-memory image of a (ROWS, HD) bf16 tile as TMA writes it:
-// HD / 64 boxes of ROWS rows x 128 bytes (one box of ROWS x 64 bytes at
-// HD = 32), each row's 16-byte chunks swizzled within 8-row groups.
+// HD / 64 boxes of ROWS rows x 128 bytes (one box of ROWS x 2 HD bytes at
+// HD = 16 or 32), each row's 16-byte chunks swizzled as `swizzled` says.
 template <int HD, int ROWS>
 struct Tile {
   static constexpr int kBoxCols = HD < 64 ? HD : 64;
@@ -230,6 +282,16 @@ struct Tile {
     for (int i = 0; i < kBoxes; ++i)
       tma_load_4d(static_cast<char*>(dst) + i * kBoxBytes, map, bar,
                   i * kBoxCols, r0, head, batch);
+  }
+
+  // Store the tile's boxes from `src` at (row r0, head, batch).
+  static __device__ __forceinline__ void store(const CUtensorMap* map,
+                                               const void* src, int r0,
+                                               int head, int batch) {
+#pragma unroll
+    for (int i = 0; i < kBoxes; ++i)
+      tma_store_4d(map, static_cast<const char*>(src) + i * kBoxBytes,
+                   i * kBoxCols, r0, head, batch);
   }
 
   // K-major operand (the head dim is the depth): rows r0.. of the tile,
@@ -301,6 +363,41 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// m64n16k16, A from registers, B from shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+}
+
+// m64n32k16, A and B from shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
 // m64n32k16, A from registers, B from shared memory

@@ -7,9 +7,12 @@ any batch/sequence/head strides that are multiples of 16 bytes, a
 contiguous last dimension and 16-byte aligned data (the Mamba2 block
 hands over views into its conv output); dt ``(b,s,h)`` and A ``(h,)`` in
 fp32. The output y ``(b,s,h,p)`` is contiguous, in x's
-dtype. The kernel works in 64-token tiles whatever ``chunk`` is (the
-scan does not depend on the chunk length); ``chunk`` is checked as the
-reference checks it.
+dtype. The kernels pick their own chunk length whatever ``chunk`` is (the
+scan does not depend on it); ``chunk`` is checked as the reference checks
+it. bf16 runs three chunk-parallel stages on `wgmma` with TMA loads, which
+pass the chunk states through a device workspace this launcher allocates
+(``repro_ssd_scan_workspace_bytes`` sizes it); fp32 runs one kernel of
+fp32 FMAs.
 """
 from __future__ import annotations
 
@@ -77,11 +80,16 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "their data 16-byte aligned")
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     lib = _build.library()
+    code = _DTYPE_CODE[x.dtype]
+    work_bytes = lib.repro_ssd_scan_workspace_bytes(code, b, s, h, p, n)
+    work = (torch.empty(work_bytes, dtype=torch.uint8, device=x.device)
+            if work_bytes else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype], b, s, h, p, g,
-            n, *strides, stream)
+            C.data_ptr(), y.data_ptr(),
+            work.data_ptr() if work is not None else None, work_bytes, code,
+            b, s, h, p, g, n, *strides, stream)
     _build.check(err, "ssd_scan_fwd")
     return y

@@ -175,44 +175,67 @@ def test_cuda_tensors_launch_the_kernels(cuda):
     ops.flash_attention(q, q, q)
     ops.ssd_scan(*_ssd_inputs(cuda, 1, 64, 2, 32, 1, 16, torch.float32),
                  chunk=64)
+    # bf16 past one 128-token chunk: three CUDA kernels, one launch counted
+    ops.ssd_scan(*_ssd_inputs(cuda, 1, 300, 2, 32, 1, 16, torch.bfloat16),
+                 chunk=300)
     torch.cuda.synchronize()
     assert ops.launches == {**before,
                             "flash_attention_fwd":
                                 before["flash_attention_fwd"] + 1,
                             "rmsnorm_fwd": before["rmsnorm_fwd"] + 1,
-                            "ssd_scan_fwd": before["ssd_scan_fwd"] + 1}
+                            "ssd_scan_fwd": before["ssd_scan_fwd"] + 2}
 
 
-def _ssd_inputs(device, b, s, h, p, g, n, dtype, seed=6):
+def _ssd_inputs(device, b, s, h, p, g, n, dtype, seed=6, views=False):
     """x, B, C in ``dtype``; dt = softplus(normal) and A = -exp(normal/2)
-    in fp32, as tests/test_kernels.py draws them."""
+    in fp32, as tests/test_kernels.py draws them. With ``views``, x, B and
+    C are views of one (b, s, h p + 2 g n) tensor, cut as
+    `models.ssm.mamba2_block` cuts its conv output."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def normal(*shape):
         return torch.randn(shape, generator=gen, device=device)
-    x = normal(b, s, h, p).to(dtype)
+    if views:
+        xbc = normal(b, s, h * p + 2 * g * n).to(dtype)
+        x = xbc[..., :h * p].reshape(b, s, h, p)
+        B = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+        C = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    else:
+        x = normal(b, s, h, p).to(dtype)
     dt = torch.nn.functional.softplus(normal(b, s, h))
     A = -torch.exp(normal(h) * 0.5)
-    return x, dt, A, normal(b, s, g, n).to(dtype), normal(b, s, g, n).to(dtype)
+    if not views:
+        B, C = normal(b, s, g, n).to(dtype), normal(b, s, g, n).to(dtype)
+    return x, dt, A, B, C
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk,dtype", [
-    (1, 2048, 64, 64, 1, 128, 256, "bfloat16"),  # mamba2-1.3b prefill
-    (2, 2048, 64, 64, 1, 128, 256, "bfloat16"),  # mamba2-1.3b train
-    (1, 2048, 64, 64, 1, 64, 256, "bfloat16"),   # zamba2-1.2b
-    (1, 256, 8, 64, 2, 32, 128, "bfloat16"),     # grouped B/C
-    (1, 32, 4, 32, 1, 16, 32, "bfloat16"),       # short: one ragged tile
-    (2, 128, 4, 32, 2, 16, 64, "float32"),
-    (1, 200, 2, 64, 1, 128, 200, "float32"),     # ragged last tile
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,dtype,views", [
+    (1, 2048, 64, 64, 1, 128, 256, "bfloat16", False),  # mamba2 prefill
+    (2, 2048, 64, 64, 1, 128, 256, "bfloat16", False),  # mamba2 train
+    (1, 2048, 64, 64, 1, 64, 256, "bfloat16", False),   # zamba2-1.2b
+    (1, 256, 8, 64, 2, 32, 128, "bfloat16", False),     # grouped B/C
+    (1, 32, 4, 32, 1, 16, 32, "bfloat16", False),       # one ragged tile
+    # many of the bf16 kernels' 128-token chunks, the last one ragged
+    (1, 2000, 8, 64, 1, 128, 250, "bfloat16", False),
+    (2, 100, 8, 64, 2, 64, 100, "bfloat16", False),     # under one chunk
+    (2, 640, 8, 32, 4, 16, 128, "bfloat16", False),     # g > 1, n=16, p=32
+    # views of one conv output, as the Mamba2 block hands them over
+    (1, 2048, 64, 64, 1, 128, 256, "bfloat16", True),
+    (2, 200, 8, 32, 2, 16, 200, "bfloat16", True),
+    (2, 128, 4, 32, 2, 16, 64, "float32", False),
+    (1, 200, 2, 64, 1, 128, 200, "float32", False),     # ragged last tile
 ])
 def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk,
-                                          dtype):
+                                          dtype, views):
     """fp32: 5e-4 of max |plain| (tests/test_kernels.py); bf16: 2e-2 of
     max |plain| and 1e-2 in Frobenius norm, as the flash backward is held
     (y is rounded to bf16 once, from fp32 sums)."""
     from repro_torch.kernels import ssd_scan as ss
-    x, dt, A, B, C = _ssd_inputs(cuda, b, s, h, p, g, n, getattr(torch, dtype))
+    x, dt, A, B, C = _ssd_inputs(cuda, b, s, h, p, g, n,
+                                 getattr(torch, dtype), views=views)
+    if views:
+        assert x.stride(1) == B.stride(1) == h * p + 2 * g * n
     got = ss.ssd_scan_fwd(x, dt, A, B, C, chunk)
     want = ref.ssd_scan_ref(x, dt, A, B, C, chunk)
     torch.cuda.synchronize()
@@ -223,6 +246,20 @@ def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk,
         * float(want.float().abs().max())
     if dtype == "bfloat16":
         assert float(err.norm() / want.float().norm()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_kernel_is_deterministic_on_card(cuda, dtype):
+    """No atomics: two calls give the same bits (bf16 at the mamba2-1.3b
+    prefill shape, through all three stages)."""
+    from repro_torch.kernels import ssd_scan as ss
+    ins = _ssd_inputs(cuda, 1, 2048, 64, 64, 1, 128, getattr(torch, dtype),
+                      views=True)
+    first = ss.ssd_scan_fwd(*ins, 256)
+    again = ss.ssd_scan_fwd(*ins, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.cuda

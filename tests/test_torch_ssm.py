@@ -367,6 +367,54 @@ def test_greedy_streams_match_jax(J, arch):
                                   np.asarray(want.generated))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_decode_drift_at_full_depth_is_no_larger_than_the_references(
+        J, seed):
+    """The mamba2 SMOKE config at mamba2-1.3b's 48 layers, in bf16 with
+    the engines' bf16 decode state: the gateway's logits at the last of
+    32 prompt tokens (fed one a step to 4 slots, as `chip_smoke.py`
+    phases 9 and 12 feed them) against prefill's, max |diff| / max
+    |prefill|, in each package on one set of weights. The port's distance
+    is at most 1.25x the reference's (the bound the bf16 logits above are
+    held to): the drift is depth-amplified bf16 rounding, which the
+    reference shows as much as the port. Measured at seeds 0 and 1: the
+    reference 0.404 and 0.319, the port 0.248 and 0.236."""
+    from repro_torch.serving.engine import GatewayEngine
+    jnp = J.jnp
+    jcfg, tcfg = _configs(J, "mamba2-1.3b", n_layers=48, dtype="bfloat16")
+    jvals, _ = J.api.init(jcfg.with_(dtype="float32"),
+                          J.jax.random.PRNGKey(seed))
+    tvals = _tensors(J, jvals)
+    slots, plen = 4, 32
+    prompt = _tokens(7 + seed, (slots, plen), jcfg.vocab_size)
+
+    def drift(served, pre):
+        return float(np.max(np.abs(served - pre)) / np.max(np.abs(pre)))
+
+    want_pre = _np(J.api.prefill(jvals, jcfg, {"tokens": jnp.asarray(
+        prompt)})[:, -1].astype(jnp.float32))
+    state, _ = J.api.init_decode_state(jcfg, slots, plen + 16)
+    step = J.jax.jit(lambda p, st, t, i: J.api.decode_step(p, jcfg, st, t,
+                                                           i))
+    for i in range(plen):
+        logits, state = step(jvals, state, jnp.asarray(prompt[:, i]),
+                             jnp.full((slots,), i, jnp.int32))
+    want = drift(_np(logits.astype(jnp.float32)), want_pre)
+
+    eng = GatewayEngine(tcfg, tvals, slots=slots, max_len=plen + 16, seed=1,
+                        device="cpu")
+    for slot in range(slots):
+        eng.join(slot, rid=slot, prompt=prompt[slot].tolist(), max_new=16)
+    for _ in range(plen):
+        eng.step()
+    got_pre = tsteps.make_prefill_step(tcfg)(
+        tvals, {"tokens": torch.from_numpy(prompt).long()})[:, -1]
+    got = drift(_np(eng.last_logits), _np(got_pre))
+    print(f"seed {seed}: reference {want:.3f}, port {got:.3f}")
+    assert np.isfinite(got) and 0.0 < want
+    assert got <= 1.25 * want, (got, want)
+
+
 def test_reset_zeroes_exactly_the_joining_slot_of_the_hybrid_state():
     """The grouped leaves carry ``batch`` at dim 2, the tail's and the KV
     caches' at dim 1: the reset finds each by name."""
