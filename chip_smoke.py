@@ -12,7 +12,8 @@ Phases, each of which exits non-zero on failure:
             / HMMA counts from `cuobjdump -sass`;
 3. kernels: hold each kernel against its plain PyTorch version on the card
             (flash-attention forward: out and lse; flash-attention
-            backward: dq, dk, dv; RMSNorm; the SSD scan at the mamba2 and
+            backward: dq, dk, dv, both also at the live plans' S=32;
+            RMSNorm; the SSD scan at the mamba2 and
             zamba2 shapes, on views of one conv output as the Mamba2 block
             cuts them, and two calls bit for bit; event select, bit for
             bit, at the fleet
@@ -59,10 +60,27 @@ Phases, each of which exits non-zero on failure:
             same draws (counts and `finished` exact, times to rtol 1e-9);
             then the six configurations of tests/test_engine_parity.py's
             corpus at 1,024 trajectories on the card, held the same way.
+14. live loop: the §VI-B loop through `Session.chaos(scenario,
+            smoke=True)`, the chaos runner's live branch: qwen3-1.7b
+            trains on the card (B=4, S=32) under a virtual clock while
+            silent faults fire. `ps_crash` (60 steps, full width): the PS
+            drops to 10% at step 20 and the controller walks none -> int8
+            -> topk, the payload dropping by the compression ratio at each
+            switch; `straggler` (80 steps, full width, recalibration
+            armed): no action, a drift alarm and a refit, the next check
+            back inside 6.7%; `ckpt_outage` (60 steps, resilience armed)
+            at the SMOKE config, as a full-width save every 5 steps would
+            write over 100 GB: failed, retried and recovered saves and the
+            fallback drill. Each scenario's gates must pass, every live
+            step launch the flash kernels 28 times each way and RMSNorm
+            113 times, and its ledger (checks, mitigations, drift alarms,
+            refits, virtual seconds) equal the port's CPU run of the
+            scenario at SMOKE; each scheme's step ms, each rebuild's ms,
+            peak memory and each scenario's seconds are printed.
 
 Then one JSON line per the kernels (launches summed over the prefill,
-serve, train and fleet phases, each counted from 0), the card line again,
-and the result line
+serve, train, fleet and live phases, each counted from 0), the card line
+again, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the repository beside it, it fails
 before printing any result.
@@ -147,6 +165,8 @@ SSD_VIEW_CASES = [(1, 2048, 64, 64, 1, 128, 256, "bfloat16"),
                   (2, 200, 8, 32, 2, 16, 200, "bfloat16")]
 
 SEQ, N_TOKENS, N_BATCH, PROMPT_LEN = 2048, 16, 4, 32
+# what `chaos.runner._run_live` trains at (global_batch=4, seq_len=32)
+LIVE_BATCH, LIVE_SEQ = 4, 32
 TRAIN_STEPS, TRAIN_BATCH = 4, 2
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
            "ssd_scan_fwd", "event_select_fwd")
@@ -260,6 +280,8 @@ CATEGORIES = (("flash_fwd_", "flash forward (ours)"),
               ("ssd_", "SSD scan (ours)"),
               ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"),
               ("copy_kernel", "copies and dtype casts"),
+              ("topk", "top-k selection (torch.topk)"),
+              ("Sort", "sorts (torch.topk)"),
               ("reduce_kernel", "reductions"),
               ("elementwise", "other elementwise"))
 
@@ -895,6 +917,241 @@ def phase_fleet(c, tag: str) -> dict:
     return main_launches
 
 
+# the ledger the live chaos runs are held to, card against CPU: every
+# controller check, mitigation, drift alarm and refit, field for field
+LEDGER_KINDS = ("detection", "mitigation", "model_drift", "model_refit")
+# (scenario, armed, on the full-width config): ckpt_outage saves every 5
+# steps, and a full-width save is ~20.6 GB (fp32 params 6.9 GB, two AdamW
+# moments 13.8 GB), so its 60 steps would write over 100 GB: it runs at
+# the SMOKE config on the card
+LIVE_SCENARIOS = (("ps_crash", None, True),
+                  ("straggler", "recalibration", True),
+                  ("ckpt_outage", "resilience", False))
+
+
+def phase_live(c, tag: str) -> dict:
+    """The §VI-B live loop through `Session.chaos(scenario, smoke=True)`:
+    the chaos runner's live branch trains qwen3-1.7b on the card under a
+    virtual clock while silent faults fire, and the scenario's gates
+    score what the controller detected and did. Each scenario's ledger
+    (controller checks, mitigations, drift alarms, refits, virtual
+    seconds) must equal that of the port's own CPU run of the scenario at
+    SMOKE in fp32 (the clock prices a step from the plan and the mitigated
+    PS alone); every live step must launch the flash kernels once per
+    layer each way and RMSNorm once per norm. Prints each compression
+    scheme's step ms, the time of each mitigation's step rebuild, peak
+    memory against its reckoning, and each scenario's seconds. Returns
+    the launches."""
+    import dataclasses
+    from repro_torch.api import session as session_mod
+    from repro_torch.calibration import RecalibrationConfig
+    from repro_torch.core.trainer import TransientTrainer
+    from repro_torch.dist.compression import compression_ratio
+    from repro_torch.resilience import ResilienceConfig
+    torch = c.torch
+    say(f"[{tag}] live loop: Session.chaos(smoke=True) on qwen3-1.7b, the "
+        "chaos runner's live branch (B=4, S=32, virtual clock), held "
+        "against the port's CPU run of each scenario at SMOKE in fp32")
+
+    # instrumentation, not the path: keep the child sessions the runner
+    # builds (their buses hold the histories), time each train step and
+    # each mitigation (the step rebuild and the residual's allocation)
+    children, steps_ms, rebuild_ms = [], [], []
+
+    class Recording(session_mod.Session):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            children.append(self)
+
+    make_step = c.steps.make_train_step
+
+    def timed_make_step(cfg, run):
+        train_step, opt = make_step(cfg, run)
+
+        def timed(state, batch):
+            t0 = time.perf_counter()
+            out = train_step(state, batch)
+            if batch["tokens"].is_cuda:
+                torch.cuda.synchronize()
+            steps_ms.append((run.grad_compression,
+                             (time.perf_counter() - t0) * 1e3))
+            return out
+        return timed, opt
+
+    apply_mitigation = TransientTrainer.apply_mitigation
+
+    def timed_mitigation(self, action, state, step=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply_mitigation(self, action, state, step=step)
+        torch.cuda.synchronize()
+        rebuild_ms.append((step, self.run.grad_compression,
+                           (time.perf_counter() - t0) * 1e3))
+        return out
+
+    session_mod.Session = Recording
+    c.steps.make_train_step = timed_make_step
+    TransientTrainer.apply_mitigation = timed_mitigation
+
+    def ledger(child, card):
+        hist = [(e.kind, e.payload) for e in child.bus.history
+                if e.kind in LEDGER_KINDS]
+        live = card["live"]
+        return hist, {k: live[k] for k in ("virtual_seconds",
+                                           "final_compression",
+                                           "final_n_ps", "actions_applied")}
+
+    total = counts()
+    for name, armed, full in LIVE_SCENARIOS:
+        run_kw = {"recalibration": RecalibrationConfig()} if \
+            armed == "recalibration" else {"resilience": ResilienceConfig()} \
+            if armed == "resilience" else {}
+        cfg = c.get_config("qwen3-1.7b", smoke=not full)
+        card_sess = c.Session.from_arch("qwen3-1.7b", smoke=not full,
+                                        **run_kw)
+        del steps_ms[:], rebuild_ms[:]
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        c.ops.reset_launches()
+        t0 = time.monotonic()
+        out = card_sess.chaos(name, smoke=True)
+        torch.cuda.synchronize()
+        card_s = time.monotonic() - t0
+        launches = dict(c.ops.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        child = children[-1]
+        sc_card = out["scenarios"][name]
+        live = sc_card["live"]
+        n_steps = live["n_steps"]
+        L = cfg.n_layers
+        n_norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
+        want = counts(flash_attention_fwd=L * n_steps,
+                      flash_attention_bwd=L * n_steps,
+                      rmsnorm_fwd=n_norms * n_steps)
+        n_params = sum(t.numel() for _, t in c.flatten(
+            child.trainer.state.params))
+        # fp32 params, gradients and two AdamW moments; with compression
+        # also the residual and the error-feedback round trip's three new
+        # trees (g + r, its compressed form, the new residual)
+        resid = child.trainer.run.grad_compression != "none"
+        reckoned_gb = 4 * n_params * (4 + 4 * resid) / 1e9
+        scale = ("full width" if full else "SMOKE: a save every 5 steps "
+                 "would write ~20.6 GB at full width")
+        armed_note = f", {armed} armed" if armed else ""
+        say(f"  {name} ({scale}; L={L} d={cfg.d_model}{armed_note}): "
+            f"{card_s:.1f}s on {card_sess.device}, {n_steps} steps, peak "
+            f"memory {peak_gb:.2f} GB (reckoned {reckoned_gb:.2f} GB: fp32 "
+            "params, grads, two AdamW moments"
+            f"{', the residual and the round trip' if resid else ''} of "
+            f"{n_params / 1e9:.3f} B)")
+        say(f"    launches {launches} (predicted {want})")
+        if launches != want:
+            fail(f"{name}: the live steps did not launch the kernels as "
+                 "predicted")
+        if not out["passed"]:
+            fail(f"{name}: the scenario's gates failed: "
+                 f"{sc_card['smoke']['failures']}")
+        losses = [e.payload["loss"] for e in child.bus.of_kind("step")]
+        if len(losses) != n_steps or not all(map(math.isfinite, losses)):
+            fail(f"{name}: the losses are not all finite: {losses}")
+        by_scheme = {}
+        for scheme, ms in steps_ms:
+            by_scheme.setdefault(scheme, []).append(ms)
+        say("    step ms by scheme: " + "; ".join(
+            f"{k} median {statistics.median(v):.1f} of {len(v)} (min "
+            f"{min(v):.1f}, max {max(v):.1f})" for k, v in by_scheme.items()))
+        for step, scheme, ms in rebuild_ms:
+            say(f"    mitigation at step {step} -> {scheme}: step rebuilt "
+                f"in {ms:.1f} ms")
+        say(f"    losses {losses[0]:.4f} -> {losses[-1]:.4f}; detections "
+            f"{live['detections']}, latency {live['detection_latency_steps']}"
+            f" steps, actions {live['actions_applied']}, final compression "
+            f"{live['final_compression']}, virtual "
+            f"{live['virtual_seconds']} s")
+        if name == "ps_crash":
+            # one step of each scheme on the run's last state and a live
+            # batch, under the profiler (the optimizer moves the weights,
+            # after the run)
+            trainer = child.trainer
+            loader = c.ShardedLoader(c.SyntheticTokenSource(
+                cfg.vocab_size, LIVE_SEQ, seed=1), LIVE_BATCH)
+            batch = {k_: torch.from_numpy(v_).to(c.dev)
+                     for k_, v_ in loader.next_global(1).items()}
+            for scheme in ("none", "int8", "topk"):
+                step_fn, _ = make_step(cfg, dataclasses.replace(
+                    trainer.run, grad_compression=scheme))
+                say_profile(f"one {scheme} step", statistics.median(
+                    by_scheme[scheme]), *device_profile(
+                        torch, lambda: step_fn(trainer.state, batch), 1),
+                    top=8, by_category=True)
+            del trainer, batch, step_fn
+            payload = {}
+            for e in child.bus.of_kind("step"):
+                if "payload_bytes" in e.payload:
+                    payload.setdefault(e.payload["grad_compression"],
+                                       e.payload["payload_bytes"])
+            full_bytes = 4.0 * n_params
+            say(f"    payload bytes: none {full_bytes:.0f} (fp32), int8 "
+                f"{payload.get('int8')}, topk {payload.get('topk')}")
+            if list(payload) != ["int8", "topk"] or not (
+                    math.isclose(payload["int8"], full_bytes
+                                 * compression_ratio("int8"), rel_tol=1e-12)
+                    and math.isclose(payload["topk"], payload["int8"]
+                                     * compression_ratio("topk")
+                                     / compression_ratio("int8"),
+                                     rel_tol=1e-12)):
+                fail("the payload did not drop by the compression ratio "
+                     "at each switch")
+        if name == "straggler":
+            recal = live["recalibration"]
+            say(f"    drift events {recal['drift_events']}; refits "
+                f"{recal['refits']}; post-refit deviation "
+                f"{recal['post_refit_deviation']}")
+            if live["actions_applied"] or not recal["drift_events"] or \
+                    not recal["refits"] or not (
+                        abs(recal["post_refit_deviation"]) < 0.067):
+                fail("straggler: no drift/refit, an action, or the refit "
+                     "missed")
+        if name == "ckpt_outage":
+            rec = live["recovery"]
+            drill = rec["fallback_drill"]
+            say(f"    saves failed {rec['save_failures']}, recovered "
+                f"{rec['recovered_saves']}, retries {rec['retries']}, drill "
+                f"{drill}")
+            if rec["save_failures"] < 3 or rec["recovered_saves"] < 1 or \
+                    drill["ok"] is not True or \
+                    drill["restored_step"] != drill["corrupted_step"] - 5:
+                fail("ckpt_outage: the saves, retries or drill missed")
+        card_ledger = ledger(child, sc_card)
+        # the oracle: the same scenario on the CPU at SMOKE in fp32
+        cpu_sess = c.Session(
+            c.get_config("qwen3-1.7b", smoke=True).with_(dtype="float32"),
+            card_sess.run, arch="qwen3-1.7b", device="cpu")
+        t0 = time.monotonic()
+        cpu_out = cpu_sess.chaos(name, smoke=True)
+        cpu_ledger = ledger(children[-1], cpu_out["scenarios"][name])
+        n_entries = len(card_ledger[0])
+        say(f"    ledger: {n_entries} entries "
+            f"({', '.join(sorted({k for k, _ in card_ledger[0]}))}) and "
+            f"{card_ledger[1]}; the CPU SMOKE run's "
+            f"({time.monotonic() - t0:.1f}s) "
+            f"{'equal field for field' if card_ledger == cpu_ledger else 'DIFFERS'}")
+        if card_ledger != cpu_ledger:
+            for a, b in zip(card_ledger[0], cpu_ledger[0]):
+                if a != b:
+                    say(f"    card {a}\n    cpu  {b}")
+            fail(f"{name}: the card's ledger differs from the CPU run's")
+        for k in total:
+            total[k] += launches[k]
+        del card_sess, cpu_sess, child, out, cpu_out
+        children.clear()
+    session_mod.Session = Recording.__bases__[0]
+    c.steps.make_train_step = make_step
+    TransientTrainer.apply_mitigation = apply_mitigation
+    release(torch)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -932,19 +1189,19 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
-    say(f"[1/13] card: {card}")
+    say(f"[1/14] card: {card}")
     say(f"      torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count={torch.cuda.device_count()}")
 
     # --------------------------------------------------------- 2. build
     t0 = time.monotonic()
     _build.library()
-    say(f"[2/13] build: {_build.library_path().name} in "
+    say(f"[2/14] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
     say_build(_build)
 
     # ------------------------------------------------ 3. kernels vs plain
-    say("[3/13] kernels vs plain versions")
+    say("[3/14] kernels vs plain versions")
     cfg = get_config("qwen3-1.7b", smoke=False)
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     report = {}
@@ -956,6 +1213,8 @@ def main() -> int:
             (1, SEQ, SEQ, 32, 32, 64, True, "bfloat16"),     # zamba2-1.2b
             (2, 200, 200, H, KV, hd, True, "bfloat16"),      # ragged
             (1, 129, 129, H, KV, hd, True, "bfloat16"),      # a tile + 1
+            (LIVE_BATCH, LIVE_SEQ, LIVE_SEQ, H, KV, hd, True,
+             "bfloat16"),                                     # live plans
             (2, 192, 320, 4, 2, 64, False, "float32"),       # bidirectional
             (1, 100, 100, 4, 1, 32, True, "float32")]:
         dt = getattr(torch, dtype)
@@ -1038,6 +1297,8 @@ def main() -> int:
             (TRAIN_BATCH, SEQ, SEQ, H, KV, hd, True, "bfloat16"),  # train
             (2, 200, 200, H, KV, hd, True, "bfloat16"),      # ragged GQA
             (1, 129, 129, H, KV, hd, True, "bfloat16"),      # a tile + 1
+            # the live plans' S=32: below one 64-row TMA box
+            (LIVE_BATCH, LIVE_SEQ, LIVE_SEQ, H, KV, hd, True, "bfloat16"),
             (2, 192, 320, 4, 2, 64, False, "float32"),       # bidirectional
             (1, 100, 100, 4, 1, 32, True, "float32")]:       # MQA
         dt = getattr(torch, dtype)
@@ -1350,10 +1611,23 @@ def main() -> int:
                   >= ops_es / PEAK_F64_FLOPS else "operations"),
         library_ms=lib_ms)
     _, ranked = device_profile(torch, lambda: es.event_select_fwd(ev), 50)
+    # the library call's own device time (all its kernels) beside the
+    # kernel's, and the host time of each call: like against like
+    min_dev_ms, min_ranked = device_profile(
+        torch, lambda: torch.min(ev, dim=1), 50)
+    es_dev_ms = kernel_ms(ranked, 'event_select_kernel')
+    es_host_us = 1e3 * host_ms(torch, lambda: es.event_select_fwd(ev))
+    min_host_us = 1e3 * host_ms(torch, lambda: torch.min(ev, dim=1))
     say(f"  event_select_fwd @ ({n_es}, {m_es}) float64: kernel {ms:.4f} ms "
-        f"per call ({kernel_ms(ranked, 'event_select_kernel'):.4f} ms on "
-        f"the device), plain {plain_ms:.4f} ms, torch.min {lib_ms:.4f} ms, "
-        f"bound {bound * 1e3:.5f} ms ({nbytes / 1e6:.2f} MB / 3.35 TB/s)")
+        f"per call ({es_dev_ms:.4f} ms on the device, {es_host_us:.2f} us "
+        f"of host time), plain {plain_ms:.4f} ms, torch.min {lib_ms:.4f} ms "
+        f"per call ({min_dev_ms:.4f} ms on the device in "
+        f"{len(min_ranked)} kernel(s), {min_host_us:.2f} us of host time), "
+        f"bound {bound * 1e3:.5f} ms ({nbytes / 1e6:.2f} MB / 3.35 TB/s); "
+        f"on the device the kernel takes {es_dev_ms / min_dev_ms:.2f}x "
+        "torch.min's time")
+    for name, t in min_ranked:
+        say(f"    torch.min: {t:.4f} ms  {name[:80]}")
     say_rate("kernel (fp64 comparisons)", ms, ops_es, bound * 1e3)
     del ev
     torch.cuda.synchronize()
@@ -1376,10 +1650,10 @@ def main() -> int:
     L = cfg.n_layers
     n_norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
     session, params, launches = phase_prefill(
-        c, "4/13", "qwen3-1.7b",
+        c, "4/14", "qwen3-1.7b",
         counts(flash_attention_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "5/13", session, params,
+    add(phase_serve(c, "5/14", session, params,
                     counts(rmsnorm_fwd=n_norms), SERVE_VS_PREFILL_TOL))
     del session, params
     release(torch)
@@ -1387,17 +1661,17 @@ def main() -> int:
     # 14 hd per causal pair and head for the attention products (4
     # forward, 10 backward)
     add(phase_train(
-        c, "6/13", "qwen3-1.7b",
+        c, "6/14", "qwen3-1.7b",
         counts(flash_attention_fwd=L, flash_attention_bwd=L,
                rmsnorm_fwd=n_norms),
         14.0 * hd * pairs * H * TRAIN_BATCH * L,
         "6 N per token plus the attention products"))
-    phase_parity(c, "7/13", "qwen3-1.7b",
+    phase_parity(c, "7/14", "qwen3-1.7b",
                  counts(flash_attention_fwd=2, flash_attention_bwd=2,
                         rmsnorm_fwd=4 * 2 + 1), PARITY_TOL)
 
     # --------------------------------------- 7b. checkpoint and resume
-    say("[7b/13] resume: SMOKE config, checkpoint_interval=2; 4 steps "
+    say("[7b/14] resume: SMOKE config, checkpoint_interval=2; 4 steps "
         "straight vs 2 steps + a new Session restoring at step 2 for 2 more")
     kw = dict(global_batch=4, seq_len=128)
     with tempfile.TemporaryDirectory() as dir_a, \
@@ -1422,9 +1696,9 @@ def main() -> int:
     L = mcfg.n_layers
     n_norms = 2 * L + 1                       # ln and gated norm, final
     session, params, launches = phase_prefill(
-        c, "8/13", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
+        c, "8/14", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "9/13", session, params,
+    add(phase_serve(c, "9/14", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
@@ -1433,10 +1707,10 @@ def main() -> int:
     # the SSD products, forward and backward (3x), in each layer
     ssd_step = 3.0 * L * ssd_flops(TRAIN_BATCH, SEQ, heads, ms_.head_dim,
                                    ms_.n_groups, ms_.d_state, ms_.chunk_size)
-    add(phase_train(c, "10/13", "mamba2-1.3b",
+    add(phase_train(c, "10/14", "mamba2-1.3b",
                     counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms), ssd_step,
                     "6 N per token plus the SSD products"))
-    phase_parity(c, "11/13", "mamba2-1.3b",
+    phase_parity(c, "11/14", "mamba2-1.3b",
                  counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1),
                  SSM_PARITY_TOL)
 
@@ -1446,18 +1720,21 @@ def main() -> int:
     n_shared = L // zcfg.shared_attn_every
     n_norms = 2 * L + 2 * n_shared + 1
     session, params, launches = phase_prefill(
-        c, "12/13", "zamba2-1.2b",
+        c, "12/14", "zamba2-1.2b",
         counts(ssd_scan_fwd=L, flash_attention_fwd=n_shared,
                rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "12/13", session, params,
+    add(phase_serve(c, "12/14", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
     release(torch)
 
     # --------------------------------------- 13. the fleet device engine
-    add(phase_fleet(c, "13/13"))
+    add(phase_fleet(c, "13/14"))
+
+    # ------------------------------------- 14. the §VI-B live chaos loop
+    add(phase_live(c, "14/14"))
 
     # ------------------------------------------------------------ result
     kernels = []

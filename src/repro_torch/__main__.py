@@ -5,6 +5,7 @@
         --global-batch 2 --seq 2048
     python -m repro_torch serve --arch qwen3-1.7b --full --tokens 16
     python -m repro_torch simulate --samples 65536 --engine jit
+    python -m repro_torch chaos --scenario ps_crash --smoke [--no-live]
 
 Runs on the CUDA card unless ``--device cpu`` is given.
 """
@@ -28,6 +29,8 @@ def build_parser():
     cli.add_scale_args(t)
     cli.add_batch_args(t)
     cli.add_train_args(t)
+    cli.add_resilience_args(t)
+    cli.add_recalib_args(t)
     s = sub.add_parser("serve", help="gateway prefill + token-by-token "
                                      "decode on the card")
     cli.add_arch_arg(s)
@@ -49,6 +52,33 @@ def build_parser():
                    help="ensemble stepper: the lockstep NumPy engine "
                         "(default), the per-trajectory event loop, or the "
                         "device engine (on --device)")
+    c = sub.add_parser("chaos", help="scripted fault scenarios with "
+                                     "ground-truth-scored detection & "
+                                     "mitigation; the live runs train on "
+                                     "the card")
+    cli.add_arch_arg(c)
+    cli.add_scale_args(c)
+    c.add_argument("--scenario", default="all",
+                   help="registered scenario name, or 'all' (default)")
+    c.add_argument("--list", action="store_true",
+                   help="list registered scenarios and exit")
+    c.add_argument("--engine", default="batched",
+                   choices=("batched", "event", "jit"),
+                   help="fleet-ensemble stepper (an engine-vs-event "
+                        "parity probe runs either way)")
+    c.add_argument("--live", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="drive the real trainer through scenarios that "
+                        "carry a live plan (--no-live: simulation only)")
+    c.add_argument("--samples", type=int, default=32,
+                   help="fleet-simulation trajectories per ensemble")
+    c.add_argument("--smoke", action="store_true",
+                   help="enforce each scenario's expectation gates; "
+                        "exit 1 if any fail")
+    # the recovery and recalibration flags arm session.run, which the
+    # simulated fleets and the live trainer runs inherit
+    cli.add_resilience_args(c)
+    cli.add_recalib_args(c)
     return p
 
 
@@ -126,11 +156,34 @@ def _cmd_simulate(args) -> int:
     return 0
 
 
+def _cmd_chaos(args) -> int:
+    import json
+
+    from repro_torch.chaos import list_scenarios
+
+    if args.list:
+        print("\n".join(list_scenarios()))
+        return 0
+    session = cli.session_from_args(args)
+    card = session.chaos(args.scenario, engine=args.engine, live=args.live,
+                         samples=args.samples, seed=args.seed,
+                         smoke=args.smoke)
+    print(json.dumps(card, indent=2, sort_keys=True))
+    if args.smoke and not card["passed"]:
+        fails = {name: c["smoke"]["failures"]
+                 for name, c in card["scenarios"].items()
+                 if not c["smoke"]["passed"]}
+        print(f"chaos smoke gates FAILED: {fails}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     try:
         return {"train": _cmd_train, "serve": _cmd_serve,
-                "simulate": _cmd_simulate}[args.cmd](args)
+                "simulate": _cmd_simulate,
+                "chaos": _cmd_chaos}[args.cmd](args)
     except NoCudaDevice as e:
         # no CUDA device and no --device cpu: a clean error, exit 2
         print(f"error: {e}", file=sys.stderr)

@@ -1,11 +1,12 @@
 """`Session` — the programmatic surface of the port, for the verbs ported
-so far: `describe`, `train`, `serve` and `simulate` (the twin of the JAX
-package's `api/session.py`; plan/predict/chaos come with later slices).
+so far: `describe`, `train`, `serve`, `simulate` and `chaos` (the twin of
+the JAX package's `api/session.py`; plan/predict come with later slices).
 
     s = Session.from_arch("qwen3-1.7b", smoke=False)   # on the card
     rep = s.train(steps=4, global_batch=2, seq_len=2048)
     out = s.serve(tokens=16)                           # the trained weights
     ens = s.simulate(samples=65536, engine="jit")      # §VI-A fleet sim
+    card = s.chaos("ps_crash", smoke=True)             # the §VI-B live loop
 
 A Session runs on the card unless it is built with ``device="cpu"``; with
 no CUDA device and no explicit CPU request, building one raises.
@@ -20,7 +21,8 @@ from repro_torch.api.events import EventBus
 from repro_torch.api.serving import ServeReport, generate
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.configs.base import ModelConfig, default_checkpoint_dir
-from repro_torch.core.perf_model.speed_model import calibrate_generators
+from repro_torch.core.perf_model.cluster_model import (PSBottleneckModel,
+                                                       WorkerSpec)
 from repro_torch.core.trainer import (MembershipEvent, TrainReport,
                                       TransientTrainer)
 from repro_torch.core.transient.fleet import FleetSim, SimWorker
@@ -55,7 +57,9 @@ class Session:
         self.trainer: Optional[TransientTrainer] = None
         self.last_report: Optional[TrainReport] = None
         self._params = None
+        self._gens = None           # the §III generators, via the store
         self._n_tensors = None      # lazily counted parameter-tree leaves
+        self._models = None         # lazily built calibration ModelStore
 
     # ------------------------------------------------------------ creation
     @classmethod
@@ -120,11 +124,25 @@ class Session:
         return self._n_tensors
 
     # ------------------------------------------------------ §III speed
+    @property
+    def models(self):
+        """The session's calibration `ModelStore`: every predictor
+        resolves through this one handle. Seeded from the static paper
+        calibrations (the memoized `calibrate_generators()` instances) and
+        updated in place by the `Recalibrator` when
+        `train(recalibration=...)` is armed."""
+        if self._models is None:
+            from repro_torch.calibration import ModelStore
+            self._models = ModelStore.with_static_calibrations()
+        return self._models
+
     def _generators(self):
-        """The Table I step-time generators, as the reference's calibration
-        store holds them before any recalibration (the same memoized
-        `calibrate_generators()` instances)."""
-        return calibrate_generators()
+        if self._gens is None:
+            store = self.models
+            self._gens = {name.split("/", 1)[1]: store.current(name)
+                          for name in store.names()
+                          if name.startswith("step_time/")}
+        return self._gens
 
     def _provider(self, provider: Optional[object]) -> FleetProvider:
         """Resolve a per-call override against the session default."""
@@ -173,20 +191,36 @@ class Session:
               check_every: int = 10,
               resume: bool = True,
               mode: str = "sync",
-              ps_model: Optional[object] = None,
-              workers: Optional[List[object]] = None,
+              ps_model: Optional[PSBottleneckModel] = None,
+              workers: Optional[List[WorkerSpec]] = None,
+              clock=None,
               resilience: Optional[object] = None,
               recalibration: Optional[object] = None) -> TrainReport:
         """Run the transient-aware elastic trainer on the session's device;
         its events stream onto `self.bus` (``step``, ``epoch``,
         ``checkpoint``, ``checkpoint_failed``, ``restore``,
-        ``lease_handover``).
+        ``lease_handover``, ``detection``, ``mitigation``, ``retry``,
+        ``degradation``, ``model_drift``, ``model_refit``, ...).
 
         `resume=True` restores from `checkpoint_dir` when a checkpoint
         exists (lease permitting), which is how a replacement chief
         continues a run (pass a new `holder`). The default directory is the
-        reference's name under TMPDIR, namespaced by arch. `mode="async_ps"` and the §VI-B /
-        resilience / recalibration arguments are not ported yet and raise
+        reference's name under TMPDIR, namespaced by arch.
+        `predicted_speed` arms the bottleneck `Controller` (a check every
+        `check_every` steps); `ps_model`/`workers` arm the §VI-B mitigation
+        loop: the Controller attributes deviations to PS saturation and the
+        trainer acts mid-run (compression, then top-k, then a PS) and
+        re-derives its prediction. `clock` (a zero-arg callable returning
+        seconds) replaces the profiler's wall clock — the chaos harness
+        injects virtual time so detection latency is deterministic.
+        `resilience` (a `repro_torch.resilience.ResilienceConfig`; default:
+        the session's `run.resilience`) arms retried checkpoint saves,
+        restores and joins, checksum fallback and quorum degradation.
+        `recalibration` (a `repro_torch.calibration.RecalibrationConfig`;
+        default: the session's `run.recalibration`) arms CUSUM drift
+        detection over Controller deviations and the online refit of the
+        `cluster_speed` estimator, versioned in `self.models`.
+        `mode="async_ps"` is not ported yet and raises
         `NotImplementedError`.
         """
         if mode == "async_ps":
@@ -208,13 +242,21 @@ class Session:
                                                  self.arch))
         loader = ShardedLoader(SyntheticTokenSource(
             self.cfg.vocab_size, seq_len, seed=run.seed), global_batch)
+        recal_cfg = (run.recalibration if recalibration is None
+                     else recalibration)
+        recalibrator = None
+        if recal_cfg is not None:
+            from repro_torch.calibration import Recalibrator
+            recalibrator = Recalibrator(config=recal_cfg, store=self.models)
         trainer = TransientTrainer(
             self.cfg, run, loader,
             members=[Member(i) for i in range(members)], holder=holder,
             predicted_speed=predicted_speed,
             on_event=lambda kind, payload: self.bus.emit(kind, **payload),
-            ps_model=ps_model, workers=workers, resilience=resilience,
-            recalibrator=recalibration, device=self.device)
+            ps_model=ps_model, workers=workers, clock=clock,
+            resilience=(run.resilience if resilience is None
+                        else resilience),
+            recalibrator=recalibrator, device=self.device)
         self.trainer = trainer
         state, _ = (trainer.restore_or_init() if resume
                     else (trainer.init_state(), 0))
@@ -224,6 +266,31 @@ class Session:
         self._params = state.params
         self.last_report = report
         return report
+
+    # ---------------------------------------------------- chaos scenarios
+    def chaos(self, scenario: str = "all", *, engine: str = "batched",
+              live: bool = True, samples: int = 32, seed: int = 0,
+              smoke: bool = False) -> Dict[str, object]:
+        """Run scripted fault scenarios against this model and score the
+        detection/mitigation loop against the recorded ground truth.
+
+        `scenario` is a registered scenario name (see
+        `repro_torch.chaos.list_scenarios()`) or ``"all"``. Each scenario
+        runs as a fleet-simulation ensemble (`samples` faulted + baseline
+        trajectories on `engine` — "batched", "event" or "jit", the last on
+        the session's device — plus an engine-vs-event parity probe);
+        scenarios with a live plan also drive the real `TransientTrainer`
+        on the session's device under a virtual clock (`live=False` skips
+        that). `smoke=True` also checks each scenario's `expect` gates and
+        sets the scorecard's `passed` flag.
+
+        Returns the JSON-serializable scorecard `python -m repro_torch
+        chaos` prints.
+        """
+        from repro_torch.chaos import runner as chaos_runner
+        return chaos_runner.run_scenarios(
+            scenario, session=self, engine=engine, live=live,
+            samples=samples, seed=seed, smoke=smoke)
 
     # ------------------------------------------------------------- serve
     def serve(self, tokens: int = 16, *, batch: int = 4,

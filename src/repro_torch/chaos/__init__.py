@@ -1,17 +1,28 @@
-"""repro_torch.chaos — fault primitives, the `FaultTimeline` the fleet
-engines consume, and the fleet scenarios (the port's copy of the JAX
-package's `chaos/injectors.py` and `chaos/scenarios.py`). The evaluator
-and the scenario runner wait for ROADMAP.md queue 1 item 13."""
+"""repro_torch.chaos — scripted fault scenarios with ground-truth-scored
+detection & mitigation (the port's copy of the JAX package's `chaos/`):
+
+* `injectors` — fault primitives and the `FaultTimeline` the fleet
+  engines consume;
+* `scenarios` — the named, seeded scenario registry;
+* `evaluator` / `runner` — ground-truth scoring of EventBus histories and
+  the scenario runner behind `Session.chaos` / `python -m repro_torch
+  chaos`.
+
+The trace-replay and serving scenarios wait for ROADMAP.md queue 1 item
+13."""
+from repro_torch.chaos.evaluator import EXPECTED_ACTIONS, score_history
 from repro_torch.chaos.injectors import (CheckpointOutage, FaultTimeline,
                                          PSCrash, PreemptionWave,
                                          PriceSpike, StragglerFault)
+from repro_torch.chaos.runner import (VirtualClock, run_scenario,
+                                      run_scenarios)
 from repro_torch.chaos.scenarios import (LiveFault, LivePlan, Scenario,
                                          get_scenario, list_scenarios,
                                          register_scenario)
 
 __all__ = [
-    "CheckpointOutage", "FaultTimeline", "LiveFault", "LivePlan",
-    "PSCrash", "PreemptionWave", "PriceSpike", "Scenario",
-    "StragglerFault", "get_scenario", "list_scenarios",
-    "register_scenario",
+    "CheckpointOutage", "EXPECTED_ACTIONS", "FaultTimeline", "LiveFault",
+    "LivePlan", "PSCrash", "PreemptionWave", "PriceSpike", "Scenario",
+    "StragglerFault", "VirtualClock", "get_scenario", "list_scenarios",
+    "register_scenario", "run_scenario", "run_scenarios", "score_history",
 ]

@@ -36,7 +36,7 @@ nothing of it).
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -395,3 +395,18 @@ class FaultTimeline:
             new = self._apply_hazard(lt, U, f, h0)
             lt = np.where(rows, new, lt)
         return lt
+
+    # ------------------------------------------------------ ground truth
+    def truth_spans(self) -> List[dict]:
+        """The recorded ground-truth timeline: one dict per fault with
+        its window in seconds — what the evaluator scores against."""
+        spans = []
+        for f in self.faults:
+            span = {"kind": f.kind, "start_s": f.start_h * 3600.0,
+                    "end_s": f.end_h * 3600.0}
+            for field in ("region", "slot", "hazard_per_h",
+                          "speed_factor", "capacity_factor"):
+                if hasattr(f, field):
+                    span[field] = getattr(f, field)
+            spans.append(span)
+        return spans

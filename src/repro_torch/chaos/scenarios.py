@@ -22,8 +22,7 @@ The port's copy of the JAX package's `chaos/scenarios.py`, with the
 seven fleet scenarios. `recorded_trace` (a trace replay) and `serve_wave`
 (a serving fleet) are not carried yet: `get_scenario` raises
 `NotImplementedError` for them, and `list_scenarios` omits them. The live
-plans are kept as data; the live branch of the chaos runner is not
-ported.
+plans drive the port's trainer through `runner._run_live`.
 """
 from __future__ import annotations
 
@@ -63,6 +62,28 @@ class LivePlan:
     n_workers: int = 4
     worker_speed: float = 25.0
     ps_capacity_over_demand: float = 2.0
+
+    _ENDS = {"ps_crash": "ps_recover", "ckpt_outage": "ckpt_recover",
+             "straggler": "straggler_end"}
+
+    def truth(self) -> List[dict]:
+        """Ground-truth spans in *steps*: [{kind, start_step, end_step}]."""
+        spans: List[dict] = []
+        open_spans: Dict[tuple, dict] = {}
+        for f in sorted(self.faults, key=lambda f: f.step):
+            if f.kind in self._ENDS:
+                key = (f.kind, f.payload.get("slot"))
+                span = {"kind": f.kind, "start_step": f.step,
+                        "end_step": self.n_steps, **dict(f.payload)}
+                spans.append(span)
+                open_spans[key] = span
+            else:
+                for start, end in self._ENDS.items():
+                    if f.kind == end:
+                        key = (start, f.payload.get("slot"))
+                        if key in open_spans:
+                            open_spans.pop(key)["end_step"] = f.step
+        return spans
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,10 +9,8 @@ plain Python. `RunConfig` is the reference's, field for field; its
 default `checkpoint_dir` keeps the reference's name (``repro_ckpt``) but
 lies in the temporary directory that ``TMPDIR`` names, as
 `default_checkpoint_dir` gives it; its `compilation_cache_dir` is
-accepted and ignored (nothing is jitted), and
-`resilience`/`recalibration` other than None are refused by the trainer
-until those layers are ported. Shape and mesh configs come with the
-slices that use them.
+accepted and ignored (nothing is jitted). Shape and mesh configs come
+with the slices that use them.
 """
 from __future__ import annotations
 
@@ -209,5 +207,5 @@ class RunConfig:
     seed: int = 0
     microbatch: int = 0                   # 0 => no gradient accumulation
     compilation_cache_dir: str = ""       # accepted, ignored: nothing to jit
-    resilience: Optional[object] = None   # not ported: must stay None
-    recalibration: Optional[object] = None  # not ported: must stay None
+    resilience: Optional[object] = None   # resilience.ResilienceConfig
+    recalibration: Optional[object] = None  # calibration.RecalibrationConfig

@@ -1,9 +1,9 @@
 """§III-C/D — the cluster-speed law with the parameter-server ceiling: the
 port's copy of the JAX package's `core/perf_model/cluster_model.py`, cut
-to what the fleet simulator needs (`PSBottleneckModel`, `WorkerSpec`,
+to what the fleet simulator and the §VI-B controller need
+(`PSBottleneckModel` with its Estimator protocol methods, `WorkerSpec`,
 `cluster_speed`). Eq (4)/(5) and `HeterogeneousPredictor` come with
-`Session.predict`, the calibration-protocol methods with the
-recalibration item (ROADMAP.md, queue 1 item 5).
+`Session.predict` (ROADMAP.md, queue 1 item 13).
 
 Cluster speed sp = Σ_i sp_i, capped by PS capacity (Fig 4, Fig 12). Serving
 one update costs max(network, RPC/apply) time —
@@ -12,7 +12,9 @@ one update costs max(network, RPC/apply) time —
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
+
+import numpy as np
 
 from repro_torch.dist.compression import compression_ratio
 
@@ -51,6 +53,51 @@ class PSBottleneckModel:
     def cluster_speed(self, workers: Sequence[WorkerSpec]) -> float:
         raw = sum(w.speed for w in workers)
         return min(raw, self.capacity_steps_per_s())
+
+    def is_bottlenecked(self, workers: Sequence[WorkerSpec]) -> bool:
+        return sum(w.speed for w in workers) > self.capacity_steps_per_s()
+
+    # Estimator protocol (repro_torch.calibration) ------------------------
+    @classmethod
+    def fit(cls, rows: Sequence[dict], model_bytes: float,
+            n_ps: int = 1, n_tensors: int = 0,
+            compression: str = "none") -> "PSBottleneckModel":
+        """Calibrate the PS bandwidth from observed saturated-cluster
+        updates/s (rows: {capacity_steps_per_s}); the RPC term keeps its
+        Table III calibration (it needs per-tensor timing we don't
+        observe in aggregate)."""
+        caps = [float(r["capacity_steps_per_s"]) for r in rows
+                if float(r.get("capacity_steps_per_s", 0.0)) > 0]
+        if not caps:
+            raise ValueError("PSBottleneckModel.fit: no positive observed "
+                             "capacities")
+        cap = float(np.median(caps))
+        # invert service = max(net, rpc)/n_ps for ps_bw; only valid when
+        # the network term dominates (otherwise capacity pins down rpc)
+        ratio = compression_ratio(compression)
+        ps_bw = 2.0 * model_bytes * ratio * cap / n_ps
+        return cls(model_bytes=model_bytes, n_ps=n_ps, ps_bw=ps_bw,
+                   n_tensors=n_tensors, compression=compression)
+
+    def predict(self, workers: Sequence[WorkerSpec]) -> float:
+        return self.cluster_speed(workers)
+
+    def update(self, rows: Sequence[dict]) -> "PSBottleneckModel":
+        return type(self).fit(rows, self.model_bytes, n_ps=self.n_ps,
+                              n_tensors=self.n_tensors,
+                              compression=self.compression)
+
+    def score(self, rows: Sequence[dict]) -> Dict[str, float]:
+        from repro_torch.calibration.estimator import score_predictions
+        caps = [float(r["capacity_steps_per_s"]) for r in rows]
+        return score_predictions(caps,
+                                 [self.capacity_steps_per_s()] * len(caps))
+
+    def params_hash(self) -> str:
+        from repro_torch.calibration.estimator import params_hash
+        return params_hash("ps_capacity", self.model_bytes, self.n_ps,
+                           self.ps_bw, self.n_tensors, self.rpc_per_tensor,
+                           self.compression)
 
 
 def cluster_speed(workers: Sequence[WorkerSpec],

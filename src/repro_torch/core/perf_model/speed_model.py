@@ -1,17 +1,18 @@
 """§III — the calibrated GPU step-time generators: the port's copy of the
 JAX package's `core/perf_model/speed_model.py`, cut to what the fleet
-simulator needs (`Session._generators` → `calibrate_generators`).
+simulator and the calibration store need (`calibrate_generators`,
+`GPUStepTimeModel` with its Estimator protocol methods).
 
 A calibrated GPU step-time generator stands in for the paper's cloud fleet:
 per-GPU piecewise-linear curves through Table I's published (C_m,
-step-time) points. The Table II regression zoo, `synth_dataset` and the
-calibration-protocol methods wait for the recalibration item (ROADMAP.md,
-queue 1 item 5).
+step-time) points. The Table II regression zoo (OLS, SVR),
+`WorkerSpeedPredictor` and `synth_dataset` wait for ROADMAP.md queue 1
+item 13.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -51,6 +52,51 @@ class GPUStepTimeModel:
             slope = (ta[-1] - ta[-2]) / (ca[-1] - ca[-2])
             return max(1e-4, ta[-1] + slope * (c - ca[-1]))
         return float(np.interp(c, ca, ta))
+
+    # Estimator protocol (repro_torch.calibration) ------------------------
+    @classmethod
+    def fit(cls, rows: List[dict], gpu: str) -> "GPUStepTimeModel":
+        """Calibrate anchors from measurement rows ({c_m, step_time});
+        repeated observations of one C_m average into one anchor."""
+        sel = [r for r in rows if r.get("gpu", gpu) == gpu]
+        if not sel:
+            raise ValueError(f"GPUStepTimeModel.fit: no rows for {gpu!r}")
+        by_c: Dict[float, List[float]] = {}
+        for r in sel:
+            by_c.setdefault(float(r["c_m"]), []).append(float(r["step_time"]))
+        if len(by_c) < 2:
+            raise ValueError("GPUStepTimeModel.fit: need >= 2 distinct C_m "
+                             "anchors for interpolation")
+        c = np.array(sorted(by_c))
+        t = np.array([float(np.mean(by_c[ci])) for ci in c])
+        return cls(gpu, c, t)
+
+    def predict(self, c_m_gflops: float) -> float:
+        return self.step_time(c_m_gflops)
+
+    def update(self, rows: List[dict]) -> "GPUStepTimeModel":
+        """Online refresh: rescale the anchor curve by the median observed
+        /predicted step-time ratio (shape is Table I's; level is live)."""
+        ratios = [float(r["step_time"]) / self.step_time(float(r["c_m"]))
+                  for r in rows if r.get("gpu", self.gpu) == self.gpu]
+        if not ratios:
+            raise ValueError("GPUStepTimeModel.update: no rows for "
+                             f"{self.gpu!r}")
+        scale = float(np.median(ratios))
+        return type(self)(self.gpu, self.c_anchors.copy(),
+                          self.t_anchors * scale)
+
+    def score(self, rows: List[dict]) -> Dict[str, float]:
+        from repro_torch.calibration.estimator import score_predictions
+        sel = [r for r in rows if r.get("gpu", self.gpu) == self.gpu]
+        return score_predictions(
+            [r["step_time"] for r in sel],
+            [self.step_time(float(r["c_m"])) for r in sel])
+
+    def params_hash(self) -> str:
+        from repro_torch.calibration.estimator import params_hash
+        return params_hash("step_time", self.gpu, self.c_anchors,
+                           self.t_anchors)
 
 
 _GENERATOR_CACHE: Optional[Dict[str, GPUStepTimeModel]] = None

@@ -1,6 +1,6 @@
 """Shared argparse wiring for the port's entry points (the twin of the
 JAX package's `launch/cli.py`, for the flags of the ported verbs:
-train, serve and simulate)."""
+train, serve, simulate and chaos)."""
 from __future__ import annotations
 
 import argparse
@@ -74,8 +74,9 @@ def add_fleet_args(p: argparse.ArgumentParser,
 
 
 def add_resilience_args(p: argparse.ArgumentParser) -> None:
-    """Recovery-policy flags of the simulated fleet. All default to unset;
-    `resilience_from_args` returns None unless at least one is given."""
+    """Recovery-policy flags (the live trainer's and the simulated
+    fleet's). All default to unset; `resilience_from_args` returns None
+    (fail-fast saves, strict restores) unless at least one is given."""
     g = p.add_argument_group("resilience")
     g.add_argument("--retry-attempts", type=int, default=None,
                    help="max attempts per fallible op (save/restore/join)")
@@ -125,6 +126,38 @@ def resilience_from_args(args: argparse.Namespace):
                             seed=getattr(args, "seed", 0) or 0)
 
 
+def add_recalib_args(p: argparse.ArgumentParser) -> None:
+    """Online-recalibration flags. Unarmed unless `--recalibrate` is
+    passed; `recalib_from_args` then returns None and every static
+    calibration stays as it is."""
+    g = p.add_argument_group("recalibration")
+    g.add_argument("--recalibrate", action="store_true",
+                   help="arm CUSUM drift detection + online refit of the "
+                        "cluster-speed model from profiler history")
+    g.add_argument("--drift-threshold", type=float, default=None,
+                   help="CUSUM alarm level on accumulated deviation "
+                        "(default 0.15)")
+    g.add_argument("--drift-allowance", type=float, default=None,
+                   help="per-check deviation slack before the CUSUM "
+                        "statistic accumulates (default 0.05)")
+    g.add_argument("--refit-window", type=int, default=None,
+                   help="trailing profiler records a refit consumes "
+                        "(default 6)")
+
+
+def recalib_from_args(args: argparse.Namespace):
+    """`RecalibrationConfig` from the add_recalib_args namespace, or None
+    when --recalibrate was not passed."""
+    if not getattr(args, "recalibrate", False):
+        return None
+    from repro_torch.calibration import RecalibrationConfig
+    picked = {field: getattr(args, field)
+              for field in ("drift_threshold", "drift_allowance",
+                            "refit_window")
+              if getattr(args, field, None) is not None}
+    return dataclasses.replace(RecalibrationConfig(), **picked)
+
+
 def run_config_from_args(args: argparse.Namespace) -> RunConfig:
     """RunConfig from the add_train_args/add_scale_args namespace; absent
     attributes fall back to RunConfig defaults. ``--checkpoint-dir`` is
@@ -139,11 +172,12 @@ def run_config_from_args(args: argparse.Namespace) -> RunConfig:
     if "total_steps" in picked:
         picked["warmup_steps"] = max(1, picked["total_steps"] // 10)
     picked["zero1"] = False
-    # the simulated fleet honors a ResilienceConfig; the trainer still
-    # refuses one, and `train` has no resilience flags
     res = resilience_from_args(args)
     if res is not None:
         picked["resilience"] = res
+    recal = recalib_from_args(args)
+    if recal is not None:
+        picked["recalibration"] = recal
     return dataclasses.replace(RunConfig(), **picked)
 
 

@@ -1,12 +1,15 @@
-"""repro_torch.resilience — the recovery policies and the keyed
-restore-stall draws the fleet engines share (the port's copy of the JAX
-package's `resilience/policy.py`). The live retry runtime waits for
-ROADMAP.md queue 1 item 5."""
+"""repro_torch.resilience — recovery layer: deterministic retry/backoff,
+quorum degradation tiers, and keyed restore-stall draws shared by the
+live `TransientTrainer` and the three fleet engines (the port's copy of
+the JAX package's `resilience/`)."""
 from repro_torch.resilience.policy import (DegradationPolicy,
                                            ResilienceConfig, RetryPolicy,
+                                           live_jitter_uniforms,
                                            stall_from_uniforms, stall_pool)
+from repro_torch.resilience.runtime import RetryExhausted, call_with_retries
 
 __all__ = [
     "DegradationPolicy", "ResilienceConfig", "RetryPolicy",
+    "RetryExhausted", "call_with_retries", "live_jitter_uniforms",
     "stall_from_uniforms", "stall_pool",
 ]

@@ -22,9 +22,7 @@ fixed slice of the stream whatever the ensemble width, so every engine
 (and any `n`) sees identical delays for trajectory ``j``.
 
 The port's copy of the JAX package's `resilience/policy.py` (it imports
-nothing of it). The live retry runtime (`resilience/runtime.py`) and its
-jitter stream wait for ROADMAP.md queue 1 item 5; the trainer still refuses
-`RunConfig.resilience`.
+nothing of it).
 """
 from __future__ import annotations
 
@@ -35,6 +33,8 @@ import numpy as np
 #: stream tag for restore-retry uniforms (cf. fleet_batched's
 #: _TAG_INITIAL / _TAG_JOIN and the chaos injector tags)
 _TAG_RESTORE = 0x5E11E
+#: stream tag for live-side retry jitter (per holder/op key)
+_TAG_LIVE = 0x5E1FE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +51,11 @@ class RetryPolicy:
     max_delay_s: float = 8.0
     jitter: float = 0.25
     deadline_s: float = 30.0
+
+    def backoff(self, attempt: int, u: float) -> float:
+        base = min(self.max_delay_s,
+                   self.base_delay_s * self.multiplier ** (attempt - 1))
+        return base * (1.0 + self.jitter * (2.0 * float(u) - 1.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +125,14 @@ def stall_pool(res: ResilienceConfig, sim_seed: int, n: int, slots: int,
     u = np.random.default_rng(ss).random(
         (n, slots, 2 * res.retry.max_attempts))
     return stall_from_uniforms(res.retry, res.restore_fail_p, u)
+
+
+def live_jitter_uniforms(retry: RetryPolicy, seed: int,
+                         key: int) -> np.ndarray:
+    """Jitter uniforms for one live retried operation, keyed on
+    ``(seed, op key)`` — deterministic under a fixed `RunConfig.seed`.
+    Negative keys (the trainer tags its restore stream -1) wrap rather
+    than crash: SeedSequence entropy must be non-negative."""
+    ss = np.random.SeedSequence((seed % 2 ** 32, _TAG_LIVE,
+                                 int(key) % 2 ** 32))
+    return np.random.default_rng(ss).random(retry.max_attempts)

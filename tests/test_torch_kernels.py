@@ -136,6 +136,7 @@ def _qkv(q, k, v, fused):
     (1, 300, 8, 1, 128, True, False),     # MQA
     (2, 160, 4, 2, 32, True, False),      # hd=32, causal
     (2, 192, 8, 2, 128, True, True),      # views of one fused QKV tensor
+    (4, 32, 16, 8, 128, True, False),     # the live chaos plans' shape
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, B, S, H, KV, hd, causal,
                                             fused, dtype):

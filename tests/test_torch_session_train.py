@@ -2,7 +2,8 @@
 `Session.train` -> `TransientTrainer.run_steps` events, membership epochs,
 writer-lease handover, checkpoint/resume (with the saved compression
 scheme and the legacy layout without a residual), `serve()` after
-`train()`, the CLI, and what is refused until it is ported."""
+`train()`, the CLI, and what is refused until it is ported (the
+asynchronous-PS mode)."""
 import json
 import tempfile
 
@@ -152,11 +153,8 @@ def test_cli_train_needs_a_card_or_cpu(monkeypatch, capsys):
     assert "device='cpu'" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("kw", [
-    {"mode": "async_ps"}, {"predicted_speed": 1.0}, {"ps_model": object()},
-    {"workers": [object()]}, {"resilience": object()},
-    {"recalibration": object()},
-], ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("kw", [{"mode": "async_ps"}],
+                         ids=lambda kw: next(iter(kw)))
 def test_unported_train_options_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _session().train(1, checkpoint_dir=str(tmp_path), **KW, **kw)

@@ -407,6 +407,8 @@ def _flash_inputs(device, Bq, Sq, Sk, H, KV, hd, dtype, fused=False):
     (1, 300, 300, 8, 1, 128, True, "bfloat16", 2e-2, 1e-2, False),  # MQA
     (2, 160, 160, 4, 2, 32, True, "bfloat16", 2e-2, 1e-2, False),   # hd=32
     (2, 192, 192, 8, 2, 128, True, "bfloat16", 2e-2, 1e-2, True),   # fused
+    # the live chaos plans' shape: S=32, below one 64-row TMA box
+    (4, 32, 32, 16, 8, 128, True, "bfloat16", 2e-2, 1e-2, False),
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(cuda, Bq, Sq, Sk, H, KV, hd,
                                                 causal, dtype, tol, norm_tol,
