@@ -12,16 +12,18 @@ Phases, each of which exits non-zero on failure:
             / HMMA counts from `cuobjdump -sass`;
 3. kernels: hold each kernel against its plain PyTorch version on the card
             (flash-attention forward: out and lse; flash-attention
-            backward: dq, dk, dv, both also at the live plans' S=32;
-            RMSNorm; the SSD scan at the mamba2 and
-            zamba2 shapes, on views of one conv output as the Mamba2 block
-            cuts them, and two calls bit for bit; event select, bit for
-            bit, at the fleet
+            backward: dq, dk, dv, both also at the live plans' S=32 and
+            at phase 15's train-step (B, S) grid; RMSNorm; the SSD scan
+            at the mamba2 and zamba2 shapes and phase 15's grid, on views
+            of one conv output as the Mamba2 block cuts them, and two
+            calls bit for bit; event select, bit for bit, at the fleet
             engine's widths) and time the kernel, the plain version and,
             where one exists, one PyTorch library call, with TFLOP/s and
             the share of the bound reached (the flash forward also at the
             training shape and at zamba2's; the SSD scan by stage, with its
-            host time per call); the host cost of RMSNorm's
+            host time per call); RMSNorm's and F.rms_norm's device
+            time (torch.profiler) beside their host-paced per-call times;
+            the host cost of RMSNorm's
             dispatch through its autograd Function; the SSD backward
             (autograd over the plain version);
 4-7b. qwen3-1.7b (dense), full width:
@@ -77,10 +79,37 @@ Phases, each of which exits non-zero on failure:
             refits, virtual seconds) equal the port's CPU run of the
             scenario at SMOKE; each scheme's step ms, each rebuild's ms,
             peak memory and each scenario's seconds are printed.
+15. model leg: the paper's §III-§V models fitted on the card's own
+            numbers. (a) `make_train_step` at full width (bf16) for
+            qwen3-1.7b and mamba2-1.3b over 8 (B, S) points from (1, 512)
+            to (2, 2048) (phase 3 holds the flash and SSD kernels at each
+            of these shapes), 2 warm-up steps, the median of 9 steps timed
+            by CUDA events beside their median wall time, and one
+            profiled step's device busy time; each point launching the
+            kernels a step as phases 6 and 10 predict; rows {arch, gpu,
+            c_m, step_time} with C_m = flops_per_token(S) B S / 1e9
+            (benchmarks/lm_speed_models.py). (b) OLS on min-max C_m and
+            the RBF SVR's grid search (k-fold MAE, the Pearson r), on the
+            step time and on the device busy time, each fit's predictions
+            at the grid's rows finite and positive;
+            `WorkerSpeedPredictor` with (2, 1024) of each arch held out,
+            and what the Table I transfer predicts for the card at 989
+            TFLOP/s. (c) 8 param trees (1.4 MB to 2.05 GB)
+            saved twice each through `Checkpointer` into temporary
+            directories, `table4_models` and `CheckpointTimePredictor` on
+            the rows (benchmarks/fig5_checkpoint.py), then the full-width
+            qwen3-1.7b params (6.88 GB) saved once against the predicted
+            T_c. (d) `Session.predict` (Eq (4)) for gcp, aws and azure with
+            that T_c; `Session.plan(score="sim", engine="jit")` over the
+            32 GCP (region, hour) cells that sell v100 at 8,192
+            trajectories a cell (one event-select launch a round), then at
+            1,024 held against the CPU's batched plan (the fleet
+            contract). The fits are printed, not gated, beyond being
+            finite and positive.
 
 Then one JSON line per the kernels (launches summed over the prefill,
-serve, train, fleet and live phases, each counted from 0), the card line
-again, and the result line
+serve, train, fleet, live and model-leg phases, each counted from 0), the
+card line again, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the repository beside it, it fails
 before printing any result.
@@ -247,26 +276,37 @@ def host_ms(torch, fn, batches: int = 10, iters: int = 20) -> float:
     return min(per)
 
 
-def device_profile(torch, fn, n: int, count=None):
+def device_profile(torch, fn, n: int, count=None, host: bool = True,
+                   tries: int = 3):
     """Run ``fn`` n times under torch.profiler. Returns the device time per
     call summed over kernels and copies (ms) and that time by kernel name,
     largest first; a dict given as ``count`` receives the number of
     device events per call under "events". The profiler slows the host,
-    so host wall times are taken without it."""
+    so host wall times are taken without it; ``host=False`` leaves the
+    host's ops out of the trace, which a train step's tens of thousands
+    of them make slow to read back. A trace that holds no device event
+    at all (the tracer dropped it) is taken again, up to ``tries`` times
+    in all, and then fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    for _ in range(tries):
         torch.cuda.synchronize()
-    by_name, events = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            events += 1
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / n)
+        with profile(activities=activities) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        by_name, events = {}, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                events += 1
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3 / n)
+        if events:
+            break
+        say(f"  the profiler saw no device event in {n} call(s); again")
+    else:
+        fail(f"the profiler saw no device event in {tries} traces")
     if count is not None:
         count["events"] = events / n
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
@@ -1152,7 +1192,389 @@ def phase_live(c, tag: str) -> dict:
     return total
 
 
+
+# phase 15 (§III): the (B, S) grid of measured train steps, from B=1, S=512
+# up to the B=2, S=2048 step phase 6 takes (46.4 GB for qwen3), and the
+# point of each arch held out of the fitted predictor
+SPEED_ARCHS = ("qwen3-1.7b", "mamba2-1.3b")
+SPEED_GRID = ((1, 512), (1, 1024), (2, 768), (1, 1536), (2, 1024),
+              (1, 2048), (2, 1536), (2, 2048))
+SPEED_HELD = (2, 1024)
+# mamba2-1.3b's SSD scan at the grid's other (B, S), as its train step
+# calls it (chunk min(256, S)); phase 3 holds these against the plain
+# version, as it holds the flash kernels at qwen3's grid shapes
+SPEED_SSD_CASES = [(b, s, 64, 64, 1, 128, min(256, s), "bfloat16")
+                   for b, s in SPEED_GRID if s != SEQ]
+STEP_WARMUP, STEP_TIMED = 2, 9
+# phase 15 (§IV): the saved trees, (arch, SMOKE?, depth or None) from
+# 1.4 MB to 2.05 GB of fp32 params, each saved CKPT_SAVES times, then the
+# full-width qwen3-1.7b params (6.88 GB) once as the held-out point; under
+# 25 GB written in all
+CKPT_TREES = (("qwen3-1.7b", True, None), ("mamba2-1.3b", True, None),
+              ("qwen3-1.7b", True, 48), ("mamba2-1.3b", False, 1),
+              ("mamba2-1.3b", False, 4), ("qwen3-1.7b", False, 1),
+              ("mamba2-1.3b", False, 8), ("qwen3-1.7b", False, 4))
+CKPT_SAVES, CKPT_MAX_BYTES = 2, 25e9
+# phase 15 (§V-C): the reference CLI's plan defaults, trajectories a cell
+# on the card, and the count at which the card's plan is held against the
+# CPU's batched plan (the fleet contract: revocation means, finished and
+# the chosen cell exact, time and cost to rtol 1e-9, the stderr and the
+# percentiles to 1e-6)
+PLAN_KW = dict(gpu="v100", n_workers=4, steps=2000, checkpoint_interval=200,
+               score="sim")
+PLAN_N, PLAN_CHECK_N = 8192, 1024
+PLAN_EXACT = ("region", "launch_hour", "samples", "expected_revocations",
+              "finished")
+PLAN_TOL = {"expected_time_s": 1e-9, "expected_cost": 1e-9,
+            "revocation_stderr": 1e-6, "time_p50_s": 1e-6,
+            "time_p90_s": 1e-6, "cost_p50": 1e-6, "cost_p90": 1e-6}
+
+
+def speed_rows(c, per_step: dict):
+    """§III measure: `make_train_step` at full width (bf16, random weights
+    from a seed) over SPEED_GRID for each arch; STEP_WARMUP steps, then
+    STEP_TIMED timed ones, each between two CUDA events, and one more
+    under the profiler. A row's step time is the median of the events'
+    times; the median wall time and the profiled step's device busy time
+    (its kernels and copies summed) stand beside it. Each step must
+    launch `per_step[arch]` kernels. Returns the rows and the launches."""
+    torch = c.torch
+    rows, total = [], counts()
+    for arch in SPEED_ARCHS:
+        cfg = c.get_config(arch, smoke=False)
+        params, _ = c.model_api.init(cfg, device=c.dev)
+        train_step, opt = c.steps.make_train_step(cfg, c.RunConfig())
+        state = c.steps.TrainState(params, opt.init(params),
+                                   torch.zeros((), dtype=torch.int32))
+        torch.cuda.reset_peak_memory_stats()
+        for b, s in SPEED_GRID:
+            loader = c.ShardedLoader(c.SyntheticTokenSource(
+                cfg.vocab_size, s, seed=1), b)
+            batch = {k: torch.from_numpy(v).to(c.dev)
+                     for k, v in loader.next_global(1).items()}
+            torch.cuda.synchronize()
+            c.ops.reset_launches()
+            walls, events, losses = [], [], []
+            for _ in range(STEP_WARMUP + STEP_TIMED):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                t0 = time.perf_counter()
+                start.record()
+                state, metrics = train_step(state, batch)
+                end.record()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                events.append(start.elapsed_time(end) / 1e3)
+                losses.append(float(metrics["loss"]))
+
+            n = STEP_WARMUP + STEP_TIMED
+
+            def one_step():
+                nonlocal state, n
+                state, _ = train_step(state, batch)
+                n += 1
+            busy_ms, _ = device_profile(torch, one_step, 1, host=False)
+            launches = dict(c.ops.launches)
+            want = {k: n * v for k, v in per_step[arch].items()}
+            step_s = statistics.median(events[STEP_WARMUP:])
+            wall_s = statistics.median(walls[STEP_WARMUP:])
+            c_m = cfg.flops_per_token(s) * b * s / 1e9
+            rows.append({"arch": arch, "gpu": "h100", "c_m": c_m,
+                         "step_time": step_s, "wall_time": wall_s,
+                         "device_busy": busy_ms / 1e3, "B": b, "S": s})
+            say(f"  {arch} B={b} S={s}: C_m {c_m:.1f} GFLOP, step "
+                f"{step_s * 1e3:.2f} ms (events, median of {STEP_TIMED}; "
+                f"all {[round(x * 1e3, 2) for x in events]}), wall "
+                f"{wall_s * 1e3:.2f} ms, device busy {busy_ms:.2f} ms "
+                f"({100 * busy_ms / (step_s * 1e3):.0f}% of the step), "
+                f"{b * s / step_s:.0f} tokens/s; loss {losses[-1]:.4f}")
+            if launches != want:
+                fail(f"{arch} B={b} S={s}: launches {launches}, predicted "
+                     f"{want} ({per_step[arch]} a step)")
+            if not all(map(math.isfinite, losses)):
+                fail(f"{arch} B={b} S={s}: a loss is not finite: {losses}")
+            for k in total:
+                total[k] += launches[k]
+            del batch
+        say(f"  {arch}: every point launched {per_step[arch]} a step; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del params, state, train_step, opt
+        release(torch)
+    return rows, total
+
+
+def speed_models(c, rows) -> None:
+    """§III model: OLS on min-max C_m and the RBF SVR's grid search, k-fold
+    MAE, for both archs and each; `WorkerSpeedPredictor` with SPEED_HELD
+    of each arch held out; the Pearson r of C_m and step time, and of
+    C_m and device busy time; the step time the Table I transfer
+    predicts for the card. Fails only on a fit that is not finite or
+    predicts a time at a grid row that is not positive."""
+    import numpy as np
+    from repro_torch.calibration import transfer_step_time_model
+    from repro_torch.core.perf_model.features import minmax_apply, minmax_fit
+    from repro_torch.core.perf_model.regression import (LinearModel,
+                                                        kfold_mae, mape)
+    from repro_torch.core.perf_model.speed_model import WorkerSpeedPredictor
+    from repro_torch.core.perf_model.svr import grid_search_svr
+
+    def ols(X, y):
+        return LinearModel().fit(X, y)
+
+    for col, what in (("step_time", "step time"),
+                      ("device_busy", "device busy time")):
+        say(f"  C_m against the {what}:")
+        for name, sel in (("both archs", rows),
+                          *((a, [r for r in rows if r["arch"] == a])
+                            for a in SPEED_ARCHS)):
+            c_m = np.array([r["c_m"] for r in sel])
+            t = np.array([r[col] for r in sel])
+            x = minmax_apply(c_m, *minmax_fit(c_m))[:, None]
+            km_ols, ks_ols = kfold_mae(ols, x, t, k=5)
+            svr, info = grid_search_svr(x, t, "rbf", k=5)
+            r = float(np.corrcoef(c_m, t)[0, 1])
+            slope = float(ols(c_m[:, None], t).w[0])
+            say(f"    {name} ({len(sel)} rows): Pearson r {r:.4f}; k-fold "
+                f"MAE OLS {km_ols * 1e3:.3f} ms (std {ks_ols * 1e3:.3f}), "
+                f"SVR-RBF {info['kfold_mae'] * 1e3:.3f} ms (std "
+                f"{info['kfold_mae_std'] * 1e3:.3f}; C={info['C']:g}, "
+                f"eps={info['epsilon']:.2f}); OLS slope "
+                f"{slope * 1e6:.3f} us/GFLOP")
+            fitted = np.concatenate([ols(x, t).predict(x), svr.predict(x)])
+            if not (math.isfinite(km_ols + info["kfold_mae"])
+                    and np.isfinite(fitted).all() and (fitted > 0).all()):
+                fail(f"{name} ({what}): a §III fit is not finite, or "
+                     "predicts a time that is not positive at a grid row")
+    held = [r for r in rows if (r["B"], r["S"]) == SPEED_HELD]
+    fit_rows = [r for r in rows if (r["B"], r["S"]) != SPEED_HELD]
+    pred = WorkerSpeedPredictor.fit(fit_rows, "h100")
+    c_fit = np.array([r["c_m"] for r in fit_rows])
+    lo, hi = minmax_fit(c_fit)
+    lin = ols(minmax_apply(c_fit, lo, hi)[:, None],
+              np.array([r["step_time"] for r in fit_rows]))
+    t_held = [r["step_time"] for r in held]
+    svr_t = [pred.predict(r["c_m"]) for r in held]
+    ols_t = list(lin.predict(minmax_apply(
+        np.array([r["c_m"] for r in held]), lo, hi)[:, None]))
+    for r, s_, o_ in zip(held, svr_t, ols_t):
+        say(f"  held out {r['arch']} B={r['B']} S={r['S']}: measured "
+            f"{r['step_time'] * 1e3:.2f} ms, WorkerSpeedPredictor (SVR-RBF) "
+            f"{s_ * 1e3:.2f} ms (APE {mape([r['step_time']], [s_]):.2f}%), "
+            f"OLS {o_ * 1e3:.2f} ms (APE {mape([r['step_time']], [o_]):.2f}"
+            "%)")
+    svr_mape, ols_mape = mape(t_held, svr_t), mape(t_held, ols_t)
+    fitted = [pred.predict(r["c_m"]) for r in rows]
+    say(f"  held-out MAPE: SVR-RBF {svr_mape:.2f}%, OLS {ols_mape:.2f}% "
+        f"({len(held)} points); params_hash {pred.params_hash()[:12]}")
+    if not all(math.isfinite(v) and v > 0 for v in fitted + ols_t):
+        fail("WorkerSpeedPredictor or the held-out OLS gives a step time "
+             "that is not finite and positive")
+    # the Table I curves (k80, p100, v100) moved to the card by peak
+    # FLOP/s: C_m here is GFLOP a step, Table I's GFLOP an image
+    tf = PEAK_FLOPS["bfloat16"] / 1e12
+    transfer = transfer_step_time_model("h100", target_teraflops=tf)
+    ratios = [transfer.predict(r["c_m"]) / r["step_time"] for r in rows]
+    say(f"  transfer_step_time_model('h100', target_teraflops={tf:g}): "
+        "predicted / measured " + ", ".join(
+            f"{r['arch'][:5]} {r['B']}x{r['S']} {q:.3g}"
+            for r, q in zip(rows, ratios)))
+    say(f"    {sum(0.5 <= q <= 2.0 for q in ratios)} of {len(ratios)} "
+        f"points within 2x (ratios {min(ratios):.3g} to {max(ratios):.3g})")
+
+
+def ckpt_rows(c):
+    """§IV measure and model: each of CKPT_TREES (weights drawn on the
+    card) saved CKPT_SAVES times through `Checkpointer` in a temporary
+    directory removed after it; `CkptRow`s of the sizes and the mean
+    seconds; `table4_models` and `CheckpointTimePredictor`; then the
+    full-width qwen3-1.7b params saved once, held out. Returns the
+    predicted T_c of the held-out save."""
+    import numpy as np
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core.perf_model.checkpoint_model import (
+        CheckpointTimePredictor, CkptRow, table4_models)
+    torch = c.torch
+    rows, written = [], 0
+
+    def save(cfg, n):
+        nonlocal written
+        params, _ = c.model_api.init(cfg, device=c.dev)
+        torch.cuda.synchronize()
+        secs = []
+        with tempfile.TemporaryDirectory() as d:
+            ck = Checkpointer(d, holder="phase-15")
+            for i in range(n):
+                sizes = ck.save(i, params)
+                secs.append(ck.last_save_seconds)
+        written += n * sizes.total
+        del params
+        release(torch)
+        return sizes, secs
+
+    for arch, smoke, depth in CKPT_TREES:
+        cfg = c.get_config(arch, smoke=smoke)
+        cfg = cfg if depth is None else cfg.with_(n_layers=depth)
+        sizes, secs = save(cfg, CKPT_SAVES)
+        name = f"{arch}{' SMOKE' if smoke else ''} L={cfg.n_layers}"
+        rows.append(CkptRow(name, sizes.s_d, sizes.s_m, sizes.s_i,
+                            float(np.mean(secs))))
+        say(f"  {name}: S_d {sizes.s_d / 1e6:.2f} MB, S_m {sizes.s_m} B, "
+            f"S_i {sizes.s_i} B; saves {[round(x, 4) for x in secs]} s "
+            f"({sizes.total / np.mean(secs) / 1e9:.2f} GB/s)")
+    s_c = [r.s_c for r in rows]
+    say(f"  {len(rows)} trees, S_c {min(s_c) / 1e6:.2f} MB to "
+        f"{max(s_c) / 1e9:.3f} GB ({math.log10(max(s_c) / min(s_c)):.1f} "
+        "orders of magnitude)")
+    if math.log10(max(s_c) / min(s_c)) < 3:
+        fail("the saved trees span under 3 orders of magnitude")
+    for rep in table4_models(rows):
+        say(f"  table4 {rep.name} ({rep.input_feature}): k-fold MAE "
+            f"{rep.kfold_mae:.4f} s (std {rep.kfold_mae_std:.4f}), test MAE "
+            f"{rep.test_mae:.4f} s, MAPE {rep.test_mape:.2f}%")
+        if not all(math.isfinite(v) for v in (rep.kfold_mae, rep.test_mae,
+                                              rep.test_mape)):
+            fail(f"table4 {rep.name}: a fit is not finite")
+    pred = CheckpointTimePredictor.fit(rows)
+    slope = float(pred.lm.w[0])
+    say(f"  CheckpointTimePredictor: T_c = {pred.lm.b:.4f} s + "
+        f"{slope * 1e3:.4f} ms/MB")
+    if not math.isfinite(slope + pred.lm.b):
+        fail("the T_c law is not finite")
+    cfg = c.get_config("qwen3-1.7b", smoke=False)
+    sizes, secs = save(cfg, 1)
+    t_c = pred.predict(sizes.total)
+    say(f"  held out qwen3-1.7b full width ({sizes.total / 1e9:.3f} GB, "
+        f"4 x {cfg.param_count()} params): measured {secs[0]:.3f} s, "
+        f"predicted {t_c:.3f} s ({100 * (t_c - secs[0]) / secs[0]:+.1f}%); "
+        f"{written / 1e9:.2f} GB written by the phase")
+    if not (math.isfinite(t_c) and t_c > 0):
+        fail("the held-out T_c prediction is not finite and positive")
+    if written > CKPT_MAX_BYTES:
+        fail(f"the phase wrote {written / 1e9:.1f} GB")
+    return t_c
+
+
+def plan_on_card(c, t_c: float) -> dict:
+    """§V/§V-C on the card: Eq (4) `Session.predict` for three markets,
+    then the sim-scored `Session.plan` on the device engine over every
+    GCP (region, hour) cell at PLAN_N trajectories (the counted path),
+    and at PLAN_CHECK_N against the CPU's batched plan. Returns the
+    counted plan's launches."""
+    import dataclasses
+    torch = c.torch
+    ses = c.Session.from_arch("qwen3-1.7b", smoke=False)
+    for prov in ("gcp", "aws", "azure"):
+        rep = ses.predict(gpu="v100", n_workers=4, t_c=t_c, provider=prov,
+                          steps=PLAN_KW["steps"],
+                          checkpoint_interval=PLAN_KW["checkpoint_interval"])
+        say(f"  predict {prov}/{rep.region}: worker "
+            f"{rep.worker_speed:.4f} steps/s, cluster {rep.cluster_speed:.4f}"
+            f"{' (PS-bottlenecked)' if rep.ps_bottlenecked else ''}, T_c "
+            f"{rep.checkpoint_seconds:.3f} s, T_p {rep.provision_seconds:.1f}"
+            f" s, T_s {rep.replacement_seconds:.1f} s, E[revocations] "
+            f"{rep.expected_revocations:.4f}, Eq (4) "
+            f"{rep.total_time_seconds:.1f} s")
+        if not (math.isfinite(rep.total_time_seconds)
+                and rep.total_time_seconds > 0):
+            fail(f"predict {prov}: Eq (4) is not finite and positive")
+    torch.cuda.synchronize()
+    c.ops.reset_launches()
+    t0 = time.monotonic()
+    best, plans = ses.plan(engine="jit", samples=PLAN_N, t_c=t_c, **PLAN_KW)
+    torch.cuda.synchronize()
+    plan_s = time.monotonic() - t0
+    launches = dict(c.ops.launches)
+    regions = sorted({p.region for p in plans})
+    say(f"  plan(score='sim', engine='jit') on {ses.device}: "
+        f"{len(plans)} cells ({len(regions)} regions {regions} x "
+        f"{len(plans) // len(regions)} hours) x {PLAN_N} trajectories in "
+        f"{plan_s:.2f} s, {plan_s / len(plans):.3f} s a cell; "
+        f"event_select launches {launches['event_select_fwd']} "
+        f"({launches['event_select_fwd'] / len(plans):.1f} a cell)")
+    if launches["event_select_fwd"] < len(plans) or any(
+            v for k, v in launches.items() if k != "event_select_fwd"):
+        fail("the sim-scored plan did not launch event_select alone, at "
+             "least once a cell")
+    say(f"  chosen: {best.region} @ {best.launch_hour:02d}h, E[cost] "
+        f"${best.expected_cost:.4f}, E[time] {best.expected_time_s:.1f} s "
+        f"(p50 {best.time_p50_s:.1f}, p90 {best.time_p90_s:.1f}), "
+        f"E[revocations] {best.expected_revocations:.4f} "
+        f"± {best.revocation_stderr:.4f}, finished "
+        f"{best.finished}/{best.samples}")
+    for p in plans:
+        if not (p.finished > 0 and math.isfinite(p.expected_cost)
+                and p.expected_cost > 0):
+            fail(f"plan cell {p.region} @ {p.launch_hour}h: no finished "
+                 "trajectory or a cost that is not finite and positive")
+    # the same plan at PLAN_CHECK_N: the card's device engine against the
+    # CPU's batched engine, over the same cells and seed
+    t0 = time.monotonic()
+    gbest, gplans = ses.plan(engine="jit", samples=PLAN_CHECK_N, t_c=t_c,
+                             **PLAN_KW)
+    torch.cuda.synchronize()
+    card_s = time.monotonic() - t0
+    cpu = c.Session.from_arch("qwen3-1.7b", smoke=False, device="cpu")
+    t0 = time.monotonic()
+    bbest, bplans = cpu.plan(engine="batched", samples=PLAN_CHECK_N,
+                             t_c=t_c, **PLAN_KW)
+    cpu_s = time.monotonic() - t0
+    worst = {k: 0.0 for k in PLAN_TOL}
+    for g, w in zip(gplans, bplans):
+        gd, wd = dataclasses.asdict(g), dataclasses.asdict(w)
+        if any(gd[k] != wd[k] for k in PLAN_EXACT):
+            fail(f"plan cell {w.region} @ {w.launch_hour}h: "
+                 + ", ".join(f"{k} {gd[k]} vs {wd[k]}" for k in PLAN_EXACT
+                             if gd[k] != wd[k]))
+        for k, tol in PLAN_TOL.items():
+            diff = abs(gd[k] - wd[k])
+            if diff > tol * (1.0 + abs(wd[k])):
+                fail(f"plan cell {w.region} @ {w.launch_hour}h: {k} "
+                     f"{gd[k]!r} vs {wd[k]!r}")
+            worst[k] = max(worst[k], diff / max(abs(wd[k]), 1e-300))
+    if len(gplans) != len(bplans) or (gbest.region, gbest.launch_hour) != (
+            bbest.region, bbest.launch_hour):
+        fail("the card's plan chose another cell than the CPU's")
+    say(f"  held at {PLAN_CHECK_N} a cell: card {card_s:.2f} s against the "
+        f"CPU's batched {cpu_s:.2f} s; counts, finished and the chosen "
+        f"cell ({gbest.region} @ {gbest.launch_hour:02d}h) exact; largest "
+        "relative error " + ", ".join(f"{k} {v:.1e}"
+                                      for k, v in worst.items()))
+    del ses, cpu
+    release(torch)
+    return launches
+
+
+def phase_models(c, tag: str, per_step: dict) -> dict:
+    """Phase 15, the paper's model leg on the card: (a) §III step times of
+    full-width train steps, (b) the §III regressions fitted to them, (c)
+    the §IV T_c law from the port's own saves, (d) Eq (4) and the
+    sim-scored §V-C plan on the device engine. Returns the launches of
+    (a) and of (d)'s counted plan."""
+    say(f"[{tag}] model leg: §III step times of full-width train steps "
+        f"(make_train_step, bf16, {len(SPEED_GRID)} (B, S) points x "
+        f"{len(SPEED_ARCHS)} archs)")
+    t0 = time.monotonic()
+    rows, launches = speed_rows(c, per_step)
+    say(f"[{tag}] §III models on the card's {len(rows)} rows (measured in "
+        f"{time.monotonic() - t0:.1f} s)")
+    speed_models(c, rows)
+    say(f"[{tag}] §IV: Checkpointer saves of {len(CKPT_TREES)} param trees "
+        "(each saved twice), then the full-width qwen3-1.7b params held out")
+    t0 = time.monotonic()
+    t_c = ckpt_rows(c)
+    say(f"[{tag}] Eq (4) predict and the sim-scored plan, qwen3-1.7b full "
+        f"width, 4 x v100, T_c {t_c:.3f} s from the §IV law (the saves "
+        f"took {time.monotonic() - t0:.1f} s)")
+    t0 = time.monotonic()
+    plan_launches = plan_on_card(c, t_c)
+    say(f"  predict and plan in {time.monotonic() - t0:.1f} s")
+    for k in launches:
+        launches[k] += plan_launches[k]
+    return launches
+
+
 def main() -> int:
+    t_start = time.monotonic()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -1189,19 +1611,19 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
-    say(f"[1/14] card: {card}")
+    say(f"[1/15] card: {card}")
     say(f"      torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count={torch.cuda.device_count()}")
 
     # --------------------------------------------------------- 2. build
     t0 = time.monotonic()
     _build.library()
-    say(f"[2/14] build: {_build.library_path().name} in "
+    say(f"[2/15] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
     say_build(_build)
 
     # ------------------------------------------------ 3. kernels vs plain
-    say("[3/14] kernels vs plain versions")
+    say("[3/15] kernels vs plain versions")
     cfg = get_config("qwen3-1.7b", smoke=False)
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     report = {}
@@ -1216,7 +1638,10 @@ def main() -> int:
             (LIVE_BATCH, LIVE_SEQ, LIVE_SEQ, H, KV, hd, True,
              "bfloat16"),                                     # live plans
             (2, 192, 320, 4, 2, 64, False, "float32"),       # bidirectional
-            (1, 100, 100, 4, 1, 32, True, "float32")]:
+            (1, 100, 100, 4, 1, 32, True, "float32"),
+            # phase 15's train steps at the other (B, S) of SPEED_GRID
+            *[(b, s, s, H, KV, hd, True, "bfloat16")
+              for b, s in SPEED_GRID if s != SEQ]]:
         dt = getattr(torch, dtype)
         q = randn((B, Sq, h, hdim), dt, 1)
         k = randn((B, Sk, kv, hdim), dt, 2)
@@ -1300,7 +1725,10 @@ def main() -> int:
             # the live plans' S=32: below one 64-row TMA box
             (LIVE_BATCH, LIVE_SEQ, LIVE_SEQ, H, KV, hd, True, "bfloat16"),
             (2, 192, 320, 4, 2, 64, False, "float32"),       # bidirectional
-            (1, 100, 100, 4, 1, 32, True, "float32")]:       # MQA
+            (1, 100, 100, 4, 1, 32, True, "float32"),        # MQA
+            # phase 15's train steps at the other (B, S) of SPEED_GRID
+            *[(b, s, s, H, KV, hd, True, "bfloat16")
+              for b, s in SPEED_GRID if (b, s) != (TRAIN_BATCH, SEQ)]]:
         dt = getattr(torch, dtype)
         q = randn((B, Sq, h, hdim), dt, 1)
         k = randn((B, Sk, kv, hdim), dt, 2)
@@ -1404,11 +1832,21 @@ def main() -> int:
         library_ms=lib_ms)
     _, ranked = device_profile(
         torch, lambda: rn.rmsnorm_fwd(x, scale_main, cfg.norm_eps), 20)
+    # F.rms_norm's own device time (all its kernels) beside the kernel's:
+    # both calls are host-paced, so their per-call times compare the host
+    rn_dev_ms = kernel_ms(ranked, 'rmsnorm_kernel')
+    lib_dev_ms, lib_ranked = device_profile(
+        torch, lambda: F.rms_norm(x, (d,), w_lib, cfg.norm_eps), 20)
     say(f"  rmsnorm_fwd @ ({SEQ}, {d}) bf16: kernel {ms:.4f} ms per call "
-        f"({kernel_ms(ranked, 'rmsnorm_kernel'):.4f} ms on the device), plain "
-        f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
-        f"{bound * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB / 3.35 TB/s); kernel at "
-        f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+        f"({rn_dev_ms:.4f} ms on the device), plain "
+        f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms per call "
+        f"({lib_dev_ms:.4f} ms on the device in {len(lib_ranked)} "
+        f"kernel(s)), bound {bound * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB / "
+        f"3.35 TB/s); kernel at {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s; on the "
+        f"device the kernel takes {rn_dev_ms / lib_dev_ms:.2f}x F.rms_norm's "
+        "time")
+    for name, t_ in lib_ranked:
+        say(f"    F.rms_norm: {t_:.4f} ms  {name[:80]}")
     say_rate("kernel", ms, flops, bound * 1e3)
     # host cost of dispatch through the autograd Function, at the decode
     # shape and under no_grad as a decode step calls it (113 per step)
@@ -1456,7 +1894,7 @@ def main() -> int:
                       normal(b, s, g, n).to(dtype))
         return x, dt, A, Bm, Cm
 
-    for case in ([c + (False,) for c in SSD_CASES]
+    for case in ([c + (False,) for c in SSD_CASES + SPEED_SSD_CASES]
                  + [c + (True,) for c in SSD_VIEW_CASES]):
         b, s, h, p, g, n, chunk, dtype, views = case
         ins = ssd_inputs(b, s, h, p, g, n, getattr(torch, dtype), views=views)
@@ -1643,35 +2081,38 @@ def main() -> int:
     main_path = counts()
 
     def add(launches):
+        """Count a phase's launches; print the script's seconds so far."""
         for name in main_path:
             main_path[name] += launches[name]
+        say(f"  ({time.monotonic() - t_start:.1f} s since the start)")
 
+    say(f"  ({time.monotonic() - t_start:.1f} s since the start)")
     # --------------------------------------------- 4-7. qwen3-1.7b, dense
     L = cfg.n_layers
     n_norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
     session, params, launches = phase_prefill(
-        c, "4/14", "qwen3-1.7b",
+        c, "4/15", "qwen3-1.7b",
         counts(flash_attention_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "5/14", session, params,
+    add(phase_serve(c, "5/15", session, params,
                     counts(rmsnorm_fwd=n_norms), SERVE_VS_PREFILL_TOL))
     del session, params
     release(torch)
     pairs = SEQ * (SEQ + 1) // 2
     # 14 hd per causal pair and head for the attention products (4
     # forward, 10 backward)
+    train_step_launches = {"qwen3-1.7b": counts(
+        flash_attention_fwd=L, flash_attention_bwd=L, rmsnorm_fwd=n_norms)}
     add(phase_train(
-        c, "6/14", "qwen3-1.7b",
-        counts(flash_attention_fwd=L, flash_attention_bwd=L,
-               rmsnorm_fwd=n_norms),
+        c, "6/15", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
         14.0 * hd * pairs * H * TRAIN_BATCH * L,
         "6 N per token plus the attention products"))
-    phase_parity(c, "7/14", "qwen3-1.7b",
+    phase_parity(c, "7/15", "qwen3-1.7b",
                  counts(flash_attention_fwd=2, flash_attention_bwd=2,
                         rmsnorm_fwd=4 * 2 + 1), PARITY_TOL)
 
     # --------------------------------------- 7b. checkpoint and resume
-    say("[7b/14] resume: SMOKE config, checkpoint_interval=2; 4 steps "
+    say("[7b/15] resume: SMOKE config, checkpoint_interval=2; 4 steps "
         "straight vs 2 steps + a new Session restoring at step 2 for 2 more")
     kw = dict(global_batch=4, seq_len=128)
     with tempfile.TemporaryDirectory() as dir_a, \
@@ -1696,9 +2137,9 @@ def main() -> int:
     L = mcfg.n_layers
     n_norms = 2 * L + 1                       # ln and gated norm, final
     session, params, launches = phase_prefill(
-        c, "8/14", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
+        c, "8/15", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "9/14", session, params,
+    add(phase_serve(c, "9/15", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
@@ -1707,10 +2148,12 @@ def main() -> int:
     # the SSD products, forward and backward (3x), in each layer
     ssd_step = 3.0 * L * ssd_flops(TRAIN_BATCH, SEQ, heads, ms_.head_dim,
                                    ms_.n_groups, ms_.d_state, ms_.chunk_size)
-    add(phase_train(c, "10/14", "mamba2-1.3b",
-                    counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms), ssd_step,
+    train_step_launches["mamba2-1.3b"] = counts(ssd_scan_fwd=L,
+                                                rmsnorm_fwd=n_norms)
+    add(phase_train(c, "10/15", "mamba2-1.3b",
+                    train_step_launches["mamba2-1.3b"], ssd_step,
                     "6 N per token plus the SSD products"))
-    phase_parity(c, "11/14", "mamba2-1.3b",
+    phase_parity(c, "11/15", "mamba2-1.3b",
                  counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1),
                  SSM_PARITY_TOL)
 
@@ -1720,21 +2163,24 @@ def main() -> int:
     n_shared = L // zcfg.shared_attn_every
     n_norms = 2 * L + 2 * n_shared + 1
     session, params, launches = phase_prefill(
-        c, "12/14", "zamba2-1.2b",
+        c, "12/15", "zamba2-1.2b",
         counts(ssd_scan_fwd=L, flash_attention_fwd=n_shared,
                rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "12/14", session, params,
+    add(phase_serve(c, "12/15", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
     release(torch)
 
     # --------------------------------------- 13. the fleet device engine
-    add(phase_fleet(c, "13/14"))
+    add(phase_fleet(c, "13/15"))
 
     # ------------------------------------- 14. the §VI-B live chaos loop
-    add(phase_live(c, "14/14"))
+    add(phase_live(c, "14/15"))
+
+    # ------------------------- 15. the §III-§V model leg, fitted on the card
+    add(phase_models(c, "15/15", train_step_launches))
 
     # ------------------------------------------------------------ result
     kernels = []
@@ -1749,6 +2195,7 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
+    say(f"phases 1-15 in {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,8 @@
     python -m repro_torch train --arch qwen3-1.7b --full --steps 4 \
         --global-batch 2 --seq 2048
     python -m repro_torch serve --arch qwen3-1.7b --full --tokens 16
+    python -m repro_torch plan --score sim --engine jit [--provider aws]
+    python -m repro_torch predict --gpu v100 --workers 4 [--provider azure]
     python -m repro_torch simulate --samples 65536 --engine jit
     python -m repro_torch chaos --scenario ps_crash --smoke [--no-live]
 
@@ -36,22 +38,50 @@ def build_parser():
     cli.add_arch_arg(s)
     cli.add_scale_args(s)
     cli.add_serve_args(s)
-    q = sub.add_parser("simulate", help="discrete-event fleet simulation "
-                                        "(§VI-A); --engine jit on the card")
-    cli.add_arch_arg(q)
-    cli.add_scale_args(q)
-    cli.add_fleet_args(q)
-    cli.add_resilience_args(q)
-    q.add_argument("--steps", type=int, default=2000)
-    q.add_argument("--checkpoint-interval", type=int, default=200)
-    q.add_argument("--samples", type=int, default=1,
-                   help="trajectories; >1 reports the p50/p90/mean "
-                        "ensemble summary (SimStats)")
-    q.add_argument("--engine", default="batched",
-                   choices=("batched", "event", "jit"),
-                   help="ensemble stepper: the lockstep NumPy engine "
-                        "(default), the per-trajectory event loop, or the "
-                        "device engine (on --device)")
+    for name, hlp in (("plan", "revocation-aware launch planning (§V-C); "
+                               "--score sim --engine jit on the card"),
+                      ("simulate", "discrete-event fleet simulation "
+                                   "(§VI-A); --engine jit on the card"),
+                      ("predict", "Eq (4)/(5) end-to-end prediction")):
+        q = sub.add_parser(name, help=hlp)
+        cli.add_arch_arg(q)
+        cli.add_scale_args(q)
+        cli.add_fleet_args(q)
+        if name in ("plan", "simulate"):
+            # predict is the Eq (4) closed form: no recovery term
+            cli.add_resilience_args(q)
+        q.add_argument("--steps", type=int, default=2000)
+        q.add_argument("--checkpoint-interval", type=int, default=200)
+        # --region defaults to None: `plan` scores every region of the
+        # selected provider; simulate/predict fall back to the provider's
+        # default region
+        if name == "plan":
+            q.add_argument("--samples", type=int, default=200,
+                           help="Monte-Carlo draws per (region, hour) cell")
+            q.add_argument("--score", default="eq4",
+                           choices=("eq4", "sim"),
+                           help="cell estimator: Eq (4) point estimate "
+                                "(default) or a full fleet-simulation "
+                                "ensemble per cell with time/cost "
+                                "percentiles")
+            q.add_argument("--engine", default="batched",
+                           choices=("batched", "event", "jit"),
+                           help="trajectory stepper for --score sim: the "
+                                "lockstep NumPy engine (default), the "
+                                "per-trajectory event loop, or the device "
+                                "engine (on --device)")
+            # planning is uncapped unless the user asks for the Fig 4 PS
+            # model (--score sim always applies it, with 1 PS by default)
+            q.set_defaults(n_ps=None)
+        elif name == "simulate":
+            q.add_argument("--samples", type=int, default=1,
+                           help="trajectories; >1 reports the p50/p90/mean "
+                                "ensemble summary (SimStats)")
+            q.add_argument("--engine", default="batched",
+                           choices=("batched", "event", "jit"),
+                           help="ensemble stepper: the lockstep NumPy "
+                                "engine (default), the per-trajectory event "
+                                "loop, or the device engine (on --device)")
     c = sub.add_parser("chaos", help="scripted fault scenarios with "
                                      "ground-truth-scored detection & "
                                      "mitigation; the live runs train on "
@@ -122,6 +152,35 @@ def _cmd_serve(args) -> int:
     return 0
 
 
+def _cmd_plan(args) -> int:
+    session = cli.session_from_args(args)
+    best, plans = session.plan(gpu=args.gpu, n_workers=args.workers,
+                               steps=args.steps,
+                               checkpoint_interval=args.checkpoint_interval,
+                               region=args.region, seed=args.seed,
+                               provider=args.provider, samples=args.samples,
+                               score=args.score, engine=args.engine,
+                               n_ps=args.n_ps)
+    where = args.region or "all regions"
+    what = ("simulated trajectories" if args.score == "sim" else "samples")
+    print(f"arch={session.arch} provider={args.provider} gpu={args.gpu} "
+          f"workers={args.workers} "
+          f"({where}): scored {len(plans)} (region, hour) cells "
+          f"x {args.samples} {what} [score={args.score}, "
+          f"device={session.device}]")
+    print(f"best: {best.region} @ {best.launch_hour:02d}h  "
+          f"E[revocations]={best.expected_revocations:.2f}"
+          f"±{best.revocation_stderr:.2f}  "
+          f"E[time]={best.expected_time_s:.0f}s  "
+          f"E[cost]=${best.expected_cost:.2f}")
+    if args.score == "sim":
+        print(f"      time p50={best.time_p50_s:.0f}s "
+              f"p90={best.time_p90_s:.0f}s  "
+              f"cost p50=${best.cost_p50:.2f} p90=${best.cost_p90:.2f}  "
+              f"finished={best.finished}/{best.samples}")
+    return 0
+
+
 def _cmd_simulate(args) -> int:
     session = cli.session_from_args(args)
     res = session.simulate(n_workers=args.workers, gpu=args.gpu,
@@ -156,6 +215,24 @@ def _cmd_simulate(args) -> int:
     return 0
 
 
+def _cmd_predict(args) -> int:
+    session = cli.session_from_args(args)
+    rep = session.predict(n_workers=args.workers, gpu=args.gpu,
+                          region=args.region, steps=args.steps,
+                          checkpoint_interval=args.checkpoint_interval,
+                          n_ps=args.n_ps, seed=args.seed,
+                          provider=args.provider)
+    print(f"arch={rep.arch} {rep.n_workers}x{rep.gpu} on "
+          f"{rep.provider}/{rep.region}: "
+          f"worker {rep.worker_speed:.2f} steps/s, cluster "
+          f"{rep.cluster_speed:.2f} steps/s"
+          f"{' (PS-bottlenecked)' if rep.ps_bottlenecked else ''}")
+    print(f"Eq(4): {rep.total_time_seconds:.0f}s for {args.steps} steps  "
+          f"(T_c={rep.checkpoint_seconds:.2f}s, "
+          f"E[revocations]={rep.expected_revocations:.2f})")
+    return 0
+
+
 def _cmd_chaos(args) -> int:
     import json
 
@@ -181,11 +258,17 @@ def _cmd_chaos(args) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        return {"train": _cmd_train, "serve": _cmd_serve,
-                "simulate": _cmd_simulate,
+        return {"train": _cmd_train, "serve": _cmd_serve, "plan": _cmd_plan,
+                "simulate": _cmd_simulate, "predict": _cmd_predict,
                 "chaos": _cmd_chaos}[args.cmd](args)
     except NoCudaDevice as e:
         # no CUDA device and no --device cpu: a clean error, exit 2
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except ValueError as e:
+        # domain validation (e.g. a (region, gpu) cell the selected
+        # provider never sold): reported cleanly, as the reference's CLI
+        # does
         print(f"error: {e}", file=sys.stderr)
         return 2
 

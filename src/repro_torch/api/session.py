@@ -1,8 +1,10 @@
 """`Session` — the programmatic surface of the port, for the verbs ported
-so far: `describe`, `train`, `serve`, `simulate` and `chaos` (the twin of
-the JAX package's `api/session.py`; plan/predict come with later slices).
+so far: `describe`, `plan`, `predict`, `train`, `serve`, `simulate` and
+`chaos` (the twin of the JAX package's `api/session.py`).
 
     s = Session.from_arch("qwen3-1.7b", smoke=False)   # on the card
+    best, plans = s.plan(gpu="v100", score="sim", engine="jit")  # §V-C
+    pred = s.predict(n_workers=4, gpu="v100")          # Eq (4)/(5)
     rep = s.train(steps=4, global_batch=2, seq_len=2048)
     out = s.serve(tokens=16)                           # the trained weights
     ens = s.simulate(samples=65536, engine="jit")      # §VI-A fleet sim
@@ -21,13 +23,18 @@ from repro_torch.api.events import EventBus
 from repro_torch.api.serving import ServeReport, generate
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.configs.base import ModelConfig, default_checkpoint_dir
-from repro_torch.core.perf_model.cluster_model import (PSBottleneckModel,
-                                                       WorkerSpec)
+from repro_torch.core.perf_model.cluster_model import (
+    Eq4Inputs, PSBottleneckModel, WorkerSpec, cluster_speed,
+    expected_revocations, predict_total_time)
+from repro_torch.core.scheduler import LaunchPlan, plan_launch
 from repro_torch.core.trainer import (MembershipEvent, TrainReport,
                                       TransientTrainer)
 from repro_torch.core.transient.fleet import FleetSim, SimWorker
+from repro_torch.core.transient.replacement import ReplacementModel
+from repro_torch.core.transient.startup import StartupModel
 from repro_torch.data.pipeline import ShardedLoader, SyntheticTokenSource
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.compression import compression_ratio
 from repro_torch.dist.elastic import Member
 from repro_torch.models import api as model_api
 from repro_torch.providers import FleetProvider, get_provider
@@ -36,6 +43,29 @@ from repro_torch.providers import FleetProvider, get_provider
 # available yet (§IV: T_c scales ~linearly with checkpoint size).
 _CKPT_BYTES_PER_S = 200e6
 _CKPT_BASE_S = 0.25
+
+
+@dataclasses.dataclass
+class PredictionReport:
+    """Composed §III/§IV/§V predictions for one (model, cluster) pairing."""
+    arch: str
+    gpu: str
+    region: str
+    provider: str
+    n_workers: int
+    model_gflops: float
+    model_bytes: float
+    worker_speed: float          # steps/s solo (§III predictor)
+    cluster_speed: float         # steps/s, PS-capped (Fig 4)
+    ps_bottlenecked: bool
+    ps_capacity: float           # PS ceiling, compression-scaled (§VI-B)
+    grad_compression: str        # wire scheme the capacity model assumed
+    payload_bytes: float         # per-push update size under that scheme
+    checkpoint_seconds: float    # T_c (§IV)
+    provision_seconds: float     # T_p (§V-B)
+    replacement_seconds: float   # T_s (Fig 10)
+    expected_revocations: float  # Eq (5)
+    total_time_seconds: float    # Eq (4)
 
 
 class Session:
@@ -179,6 +209,140 @@ class Session:
         if self.trainer is not None and self.trainer.ckpt.last_save_seconds:
             return self.trainer.ckpt.last_save_seconds
         return _CKPT_BASE_S + self.model_bytes() / _CKPT_BYTES_PER_S
+
+    # ------------------------------------------------------ §V-C planner
+    def plan(self, gpu: str = "v100", n_workers: int = 4,
+             steps: Optional[int] = None,
+             checkpoint_interval: Optional[int] = None,
+             t_c: Optional[float] = None,
+             hours: Optional[List[int]] = None,
+             region: Optional[str] = None,
+             seed: int = 0,
+             provider: Optional[object] = None,
+             samples: int = 200,
+             n_ps: Optional[int] = None,
+             score: str = "eq4",
+             engine: str = "batched",
+             resilience: Optional[object] = None
+             ) -> Tuple[LaunchPlan, List[LaunchPlan]]:
+        """Revocation-aware (region, launch-hour) planning for this model.
+
+        `region=None` scores every region offering `gpu`; pass a region to
+        constrain the plan to it. `provider` picks the transient market
+        (default: the session's, normally "gcp"). `samples` sets the
+        Monte-Carlo draws per (region, hour) cell — every returned
+        `LaunchPlan` carries the binomial `revocation_stderr` of its
+        E[revocations] estimate. `n_ps` (optional) additionally caps the
+        cluster speed with the Fig 4 PS capacity model for this model's
+        payload under `run.grad_compression` — the §VI-B recalibration,
+        so a compressed plan sees the raised ceiling.
+
+        `score="sim"` replaces the Eq (4) point estimate with a full
+        fleet-simulation ensemble per cell (`samples` trajectories on
+        `engine` — "batched", "event", or "jit", the last on the session's
+        device, the card unless it was built with ``device="cpu"``), so
+        every plan also carries realized time/cost percentiles and the
+        `finished` censoring count — simulation-backed planning instead of
+        the closed form alone.
+        A sim-scored sweep ALWAYS simulates under the Fig 4 PS capacity
+        for this model (defaulting to one PS when `n_ps` is not given),
+        matching what `simulate()`/`predict()` would report for the
+        chosen cell; the eq4 score keeps its historic uncapped Σ sp_i
+        composition unless `n_ps` is passed.
+
+        `resilience` (default: the session `run.resilience`) is honored
+        under score="sim": the simulated cells price in quorum pauses and
+        restore-retry stalls.
+        """
+        prov = self._provider(provider)
+        # validate (gpu, region) BEFORE the MC sweep so a typo'd region
+        # fails immediately instead of after seconds of discarded work
+        self._check_fleet(gpu, region, prov)
+        ps = None
+        if n_ps is not None or score == "sim":
+            ps = PSBottleneckModel(self.model_bytes(),
+                                   1 if n_ps is None else n_ps,
+                                   n_tensors=self.n_tensors(),
+                                   compression=self.run.grad_compression)
+        best, plans = plan_launch(
+            gpu, n_workers, self.predict_worker_speed(gpu, provider=prov),
+            n_w=self.run.total_steps if steps is None else steps,
+            i_c=(self.run.checkpoint_interval if checkpoint_interval is None
+                 else checkpoint_interval),
+            t_c=t_c if t_c is not None else self.checkpoint_seconds(),
+            hours=hours, seed=seed, provider=prov, samples=samples,
+            # the session's real model complexity, so plan() and predict()
+            # agree on the Fig 10 replacement term for the same cell
+            model_gflops=self.model_gflops(), ps=ps,
+            score=score, engine=engine, model_bytes=self.model_bytes(),
+            # constrain BEFORE scoring: under score="sim" every discarded
+            # cell would have cost a full ensemble
+            region=region,
+            resilience=(self.run.resilience if resilience is None
+                        else resilience),
+            device=self.device)
+        return best, plans
+
+    def plan_serving(self, *args, **kwargs):
+        """The SLO-aware serving-fleet planner of the JAX package's
+        Session; not ported."""
+        raise NotImplementedError(
+            "plan_serving (the serving fleet: serving/planner.py and its "
+            "simulator) is not ported to repro_torch yet (ROADMAP.md, "
+            "queue 1 item 13)")
+
+    # ------------------------------------------------ Eq (4)/(5) predict
+    def predict(self, n_workers: int = 4, gpu: str = "v100",
+                region: Optional[str] = None,
+                steps: Optional[int] = None,
+                checkpoint_interval: Optional[int] = None,
+                n_ps: int = 1, t_c: Optional[float] = None,
+                seed: int = 0,
+                provider: Optional[object] = None) -> PredictionReport:
+        """Compose the §III speed, §IV checkpoint and §V revocation models
+        into the Eq (4) end-to-end wall-clock prediction. `provider` picks
+        the transient market; `region=None` uses its default region."""
+        prov = self._provider(provider)
+        region = region or prov.default_region
+        self._check_fleet(gpu, region, prov)
+        n_w = self.run.total_steps if steps is None else steps
+        i_c = (self.run.checkpoint_interval if checkpoint_interval is None
+               else checkpoint_interval)
+        worker_speed = self.predict_worker_speed(gpu, provider=prov)
+        # the capacity ceiling reflects the run's wire scheme (§VI-B): a
+        # compressed payload raises the network term by 1/compression_ratio
+        # while the per-tensor RPC term stays — RPC-bound models (many
+        # small tensors) keep their ceiling
+        ps = PSBottleneckModel(self.model_bytes(), n_ps,
+                               n_tensors=self.n_tensors(),
+                               compression=self.run.grad_compression)
+        workers = [WorkerSpec(gpu, worker_speed)] * n_workers
+        sp = cluster_speed(workers, ps)
+        hours = n_w / sp / 3600.0
+        lifetime = prov.lifetime_model(region, gpu)
+        horizon = min(hours, prov.max_lifetime_hours)
+        probs = [lifetime.prob_revoked_within(horizon)] * n_workers
+        t_c = t_c if t_c is not None else self.checkpoint_seconds()
+        if i_c == 0:  # no checkpointing: zero pauses, Eq (4) stays defined
+            i_c, t_c = n_w, 0.0
+        t_p = StartupModel(seed, prov).mean_total(gpu)
+        t_s = ReplacementModel(seed, prov).cold_start_s(self.model_gflops())
+        total = predict_total_time(sp, Eq4Inputs(n_w, i_c, t_c, t_p, t_s,
+                                                 probs))
+        return PredictionReport(
+            arch=self.arch, gpu=gpu, region=region, provider=prov.name,
+            n_workers=n_workers,
+            model_gflops=self.model_gflops(),
+            model_bytes=self.model_bytes(), worker_speed=worker_speed,
+            cluster_speed=sp, ps_bottlenecked=ps.is_bottlenecked(workers),
+            ps_capacity=ps.capacity_steps_per_s(),
+            grad_compression=self.run.grad_compression,
+            payload_bytes=self.model_bytes()
+            * compression_ratio(self.run.grad_compression),
+            checkpoint_seconds=t_c, provision_seconds=t_p,
+            replacement_seconds=t_s,
+            expected_revocations=expected_revocations(probs),
+            total_time_seconds=total)
 
     # ----------------------------------------------------- elastic train
     def train(self, steps: Optional[int] = None, *, global_batch: int = 8,

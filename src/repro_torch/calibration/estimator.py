@@ -16,11 +16,11 @@ them as "an estimator":
                     hashes IS equality of calibrations, which is how the
                     golden-parity tests pin the unarmed path
 
-Adopters in the port: `GPUStepTimeModel` (§III), `PSBottleneckModel`
-(Fig 4 capacity), and the online `ClusterSpeedEstimator` below that the
-drift/refit loop fits from profiler history. `WorkerSpeedPredictor`,
-`CheckpointTimePredictor` and the §V lifetime laws adopt it in the JAX
-package; the port's copies wait for ROADMAP.md queue 1 item 13.
+Adopters: `GPUStepTimeModel` / `WorkerSpeedPredictor` (§III),
+`CheckpointTimePredictor` (§IV), `PSBottleneckModel` (Fig 4 capacity),
+`LifetimeModel` and the provider `LifetimeLaw`s (§V), plus the online
+`ClusterSpeedEstimator` below that the drift/refit loop fits from
+profiler history.
 
 The port's copy of the JAX package's `calibration/estimator.py`.
 """

@@ -59,6 +59,10 @@ class CheckpointSizes:
     s_i: int
     s_m: int
 
+    @property
+    def total(self) -> int:
+        return self.s_d + self.s_i + self.s_m
+
 
 class WriterLease:
     """File-based lease: holder writes {holder, expires}; others may steal

@@ -1,17 +1,22 @@
-"""§III-C/D — the cluster-speed law with the parameter-server ceiling: the
-port's copy of the JAX package's `core/perf_model/cluster_model.py`, cut
-to what the fleet simulator and the §VI-B controller need
-(`PSBottleneckModel` with its Estimator protocol methods, `WorkerSpec`,
-`cluster_speed`). Eq (4)/(5) and `HeterogeneousPredictor` come with
-`Session.predict` (ROADMAP.md, queue 1 item 13).
+"""§III-C/D + §VI-A — cluster-level composition and end-to-end prediction:
+the port's copy of the JAX package's `core/perf_model/cluster_model.py`
+(it imports nothing of it).
 
-Cluster speed sp = Σ_i sp_i, capped by PS capacity (Fig 4, Fig 12). Serving
-one update costs max(network, RPC/apply) time —
+Key empirical laws reproduced from the paper:
+  * worker speed is invariant to cluster size/heterogeneity until the
+    parameter server saturates (Table III);
+  * cluster speed sp = Σ_i sp_i, capped by PS capacity (Fig 4, Fig 12);
+  * total time Eq (4):
+        T = N_w/sp + ceil(N_w/I_c) * T_c + N_r * (T_p + T_s)
+  * expected revocations Eq (5): N_r = Σ_i Pr(R_i).
+
+Serving one update costs max(network, RPC/apply) time —
     service = max(2*model_bytes/ps_bw, rpc_per_tensor * n_tensors) / n_ps
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -53,6 +58,16 @@ class PSBottleneckModel:
     def cluster_speed(self, workers: Sequence[WorkerSpec]) -> float:
         raw = sum(w.speed for w in workers)
         return min(raw, self.capacity_steps_per_s())
+
+    def worker_step_time(self, workers: Sequence[WorkerSpec],
+                         gpu: str) -> float:
+        """Average step time of a worker of `gpu` type inside the cluster
+        (Table III): slowed uniformly once the PS saturates."""
+        raw = sum(w.speed for w in workers)
+        cap = self.capacity_steps_per_s()
+        slowdown = max(1.0, raw / cap)
+        solo = next(w.speed for w in workers if w.gpu == gpu)
+        return slowdown / solo
 
     def is_bottlenecked(self, workers: Sequence[WorkerSpec]) -> bool:
         return sum(w.speed for w in workers) > self.capacity_steps_per_s()
@@ -106,3 +121,45 @@ def cluster_speed(workers: Sequence[WorkerSpec],
     if ps is None:
         return sum(w.speed for w in workers)
     return ps.cluster_speed(workers)
+
+
+@dataclasses.dataclass
+class Eq4Inputs:
+    n_w: int                 # training work, steps
+    i_c: int                 # checkpoint interval, steps
+    t_c: float               # checkpoint seconds (predicted §IV)
+    t_p: float               # provisioning seconds (startup model §V-B)
+    t_s: float               # worker replacement seconds (Fig 10)
+    revoke_probs: Sequence[float]  # Pr(R_i) per worker over the run (Eq 5)
+
+
+def expected_revocations(revoke_probs: Sequence[float]) -> float:
+    """Eq (5)."""
+    return float(sum(revoke_probs))
+
+
+def predict_total_time(sp: float, inp: Eq4Inputs) -> float:
+    """Eq (4)."""
+    n_r = expected_revocations(inp.revoke_probs)
+    return (inp.n_w / sp
+            + math.ceil(inp.n_w / inp.i_c) * inp.t_c
+            + n_r * (inp.t_p + inp.t_s))
+
+
+@dataclasses.dataclass
+class HeterogeneousPredictor:
+    """§VI-A use case: compose per-GPU speed predictors into cluster
+    predictions; built offline, refreshed from monitoring."""
+    speed_of: Dict[str, float]      # gpu -> predicted steps/s (solo)
+    model_bytes: float
+    n_ps: int = 1
+    n_tensors: int = 0
+    compression: str = "none"
+
+    def predict(self, counts: Dict[str, int]) -> float:
+        workers = [WorkerSpec(g, self.speed_of[g])
+                   for g, n in counts.items() for _ in range(n)]
+        ps = PSBottleneckModel(self.model_bytes, self.n_ps,
+                               n_tensors=self.n_tensors,
+                               compression=self.compression)
+        return cluster_speed(workers, ps)

@@ -1,14 +1,19 @@
-"""The GPU table of the paper's §III models — the port's copy of the JAX
-package's `core/perf_model/features.py`, cut to `GPU_SPECS`, which the GCP
-adapter's price sheet reads (`providers/gcp.py`).
+"""Features of the paper's §III models: model complexity C_m (FLOPs per
+step), GPU computational capacity C_gpu (peak TFLOP/s), computation ratio
+C_norm = C_m / C_gpu, min-max normalized. The port's copy of the JAX
+package's `core/perf_model/features.py`.
 
-C_gpu is the peak TFLOP/s of each GPU (the v5e row is a TPU chip, kept so
-the table is the reference's).
+`GPU_SPECS` is the reference's table (the v5e row is a TPU chip, kept so
+the table is the reference's). It has no row for the H100 on purpose: a
+caller that models the card passes its peak itself
+(`calibration.transfer_step_time_model(..., target_teraflops=)`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,3 +32,18 @@ GPU_SPECS: Dict[str, GPUSpec] = {
     "v100": GPUSpec("v100", 14.13, 16.0, 2.48, 0.74),
     "v5e": GPUSpec("v5e", 197.0, 16.0, 1.2, 0.36),  # bf16 chip
 }
+
+
+def c_norm(c_m: np.ndarray, c_gpu: np.ndarray) -> np.ndarray:
+    """Computation ratio: model complexity / GPU capacity."""
+    return np.asarray(c_m, float) / np.asarray(c_gpu, float)
+
+
+def minmax_fit(x: np.ndarray) -> Tuple[float, float]:
+    x = np.asarray(x, float)
+    return float(x.min()), float(x.max())
+
+
+def minmax_apply(x: np.ndarray, lo: float, hi: float) -> np.ndarray:
+    span = (hi - lo) if hi > lo else 1.0
+    return (np.asarray(x, float) - lo) / span

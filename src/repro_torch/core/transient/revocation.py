@@ -8,9 +8,8 @@ empirical CDFs are exposed via `cdf()` / `sample()` / `prob_revoked_within()`
 — Eq (5) queries the latter.
 
 The port's copy of the JAX package's `core/transient/revocation.py` (it
-imports nothing of it). The calibration-protocol methods of `LifetimeModel`
-(`fit`, `predict`, `update`, `score`, `params_hash`) wait for the
-recalibration item (ROADMAP.md, queue 1 item 13).
+imports nothing of it), with `LifetimeModel`'s calibration-protocol methods
+(`fit`, `predict`, `update`, `score`, `params_hash`).
 """
 from __future__ import annotations
 
@@ -241,6 +240,48 @@ class LifetimeModel:
         ts = np.linspace(0, MAX_LIFETIME_H, 2000)
         c = self.cdf(ts) / max(self.p24, 1e-12)
         return float(np.trapezoid(1.0 - c, ts))
+
+    # Estimator protocol (repro_torch.calibration) ------------------------
+    @classmethod
+    def fit(cls, region: str, gpu: str, lifetimes_h,
+            k: Optional[float] = None) -> "LifetimeModel":
+        """Censored fit from observed lifetimes (np.inf = survived 24h):
+        p24 from the finite fraction, λ from the conditional mean of the
+        revoked lifetimes, shape k kept from the Fig 8 hint (a Weibull
+        shape needs far more data than a mid-run trace provides)."""
+        lt = np.asarray(lifetimes_h, float)
+        if lt.size == 0:
+            raise ValueError("LifetimeModel.fit: no observed lifetimes")
+        finite = lt[np.isfinite(lt)]
+        p24 = min(max(finite.size / lt.size, 1e-3), 1.0 - 1e-3)
+        if k is None:
+            k = _SHAPE_HINTS.get((region, gpu), (1.2, 12.0))[0]
+        mean_cond = (float(finite.mean()) if finite.size
+                     else _SHAPE_HINTS.get((region, gpu), (1.2, 12.0))[1])
+        lam = max(mean_cond, 1e-3) / math.gamma(1.0 + 1.0 / k)
+        return cls(region, gpu, float(k), lam, p24)
+
+    def predict(self, t_hours: float) -> float:
+        return self.prob_revoked_within(t_hours)
+
+    def update(self, lifetimes_h) -> "LifetimeModel":
+        return type(self).fit(self.region, self.gpu, lifetimes_h, k=self.k)
+
+    def score(self, lifetimes_h) -> dict:
+        """Goodness-of-fit on the one quantity Eq (5) consumes: the 24h
+        revocation probability, against the sample's finite fraction."""
+        lt = np.asarray(lifetimes_h, float)
+        if lt.size == 0:
+            raise ValueError("LifetimeModel.score: no observed lifetimes")
+        observed = float(np.isfinite(lt).mean())
+        return {"n": int(lt.size), "mae": abs(observed - self.p24),
+                "mape": abs(observed - self.p24)
+                / max(observed, 1e-12) * 100.0}
+
+    def params_hash(self) -> str:
+        from repro_torch.calibration.estimator import params_hash
+        return params_hash("lifetime", self.region, self.gpu, self.k,
+                           self.lam, self.p24)
 
 
 REGION_GPU_PARAMS = {key: LifetimeModel.calibrated(*key)

@@ -1,6 +1,6 @@
 """Shared argparse wiring for the port's entry points (the twin of the
 JAX package's `launch/cli.py`, for the flags of the ported verbs:
-train, serve, simulate and chaos)."""
+train, serve, plan, simulate, predict and chaos)."""
 from __future__ import annotations
 
 import argparse
@@ -65,10 +65,10 @@ def add_fleet_args(p: argparse.ArgumentParser,
     p.add_argument("--gpu", default="v100", choices=("k80", "p100", "v100"))
     p.add_argument("--provider", default="gcp",
                    choices=available_providers(),
-                   help="transient market to simulate on")
+                   help="transient market to plan/simulate/predict on")
     p.add_argument("--region", default=None,
-                   help="one region (default: the provider's default "
-                        "region)")
+                   help="constrain to one region (default: the provider's "
+                        "default region; `plan` scores all regions)")
     p.add_argument("--workers", type=int, default=workers_default)
     p.add_argument("--n-ps", type=int, default=1)
 

@@ -18,7 +18,7 @@ Catalog note: AWS never sold P100s — K80s are p2.* and V100s are p3.*,
 which is why `p100` is absent from this market's offerings.
 
 The port's copy of the JAX package's `providers/aws.py` (it imports nothing
-of it). `params_hash` waits for the recalibration item.
+of it).
 """
 from __future__ import annotations
 
@@ -103,6 +103,14 @@ class PriceSignalLifetime(LifetimeLaw):
         # right=np.inf: targets beyond the horizon's cumulative hazard
         # survived the sampling window
         return np.interp(target, cum, ts, right=np.inf)
+
+    def params_hash(self) -> str:
+        # override the LifetimeLaw default: include the derived
+        # base_hazard (the fitted quantity) and skip the grid cache
+        from repro_torch.calibration.estimator import params_hash
+        return params_hash("price_signal", self.region, self.gpu, self.p24,
+                           self.peak_hour, self.amplitude, self.horizon_h,
+                           self.base_hazard)
 
     #: single-column consumption: one uniform through the inverse
     #: cumulative hazard (keeps the engines' pre-drawn pools minimal)

@@ -16,7 +16,7 @@ What changes relative to the paper's GCP market (docs/providers.md):
 Catalog: NC6 (K80), NC6s_v2 (P100), NC6s_v3 (V100) across four regions.
 
 The port's copy of the JAX package's `providers/azure.py` (it imports
-nothing of it). `params_hash` waits for the recalibration item.
+nothing of it).
 """
 from __future__ import annotations
 
@@ -68,6 +68,14 @@ class TieredEvictionLifetime(LifetimeLaw):
         # memoryless: start_hour is irrelevant by construction
         t = rng.exponential(1.0 / self.hazard_per_h, size=n)
         return np.where(t > self.horizon_h, np.inf, t)
+
+    def params_hash(self) -> str:
+        # override the LifetimeLaw default: the tier resolves to the
+        # fitted (p24, hazard) pair — hash those, not just the label
+        from repro_torch.calibration.estimator import params_hash
+        return params_hash("tiered_eviction", self.region, self.gpu,
+                           self.tier, self.horizon_h, self.p24,
+                           self.hazard_per_h)
 
     #: single-column consumption: one uniform through the inverse
     #: exponential CDF (keeps the engines' pre-drawn pools minimal)

@@ -23,16 +23,15 @@ runtime is assumed to flush a checkpoint inside the notice window — the
 paper observed stock frameworks do NOT react to GCP's 30 s notice).
 
 The port's copy of the JAX package's `providers/base.py` (it imports
-nothing of it). The calibration-protocol surface of `LifetimeLaw`
-(`residuals`, `score`, `params_hash`) waits for the recalibration item
-(ROADMAP.md, queue 1 item 13).
+nothing of it), with the calibration-protocol surface of `LifetimeLaw`
+(`residuals`, `score`, `params_hash`).
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
 import math
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -85,6 +84,46 @@ class LifetimeLaw(abc.ABC):
     @abc.abstractmethod
     def mean_time_to_revocation(self) -> float:
         """Conditional mean lifetime of revoked servers (hours)."""
+
+    # ------------------------------------------- Estimator-protocol surface
+    def residuals(self, lifetimes_h) -> np.ndarray:
+        """Fit residuals against observed lifetimes: for each finite
+        observation, empirical CDF minus model CDF at that point (signed;
+        positive = the law under-predicts early revocations). The
+        calibration layer uses these to decide whether a law still
+        matches the market it was fit on."""
+        lt = np.asarray(lifetimes_h, float)
+        finite = np.sort(lt[np.isfinite(lt)])
+        if finite.size == 0:
+            return np.empty(0)
+        # Hazen plotting positions for the empirical CDF, scaled by the
+        # finite fraction so the survival mass is accounted for
+        emp = (np.arange(1, finite.size + 1) - 0.5) / lt.size
+        return emp - np.asarray(self.cdf(finite), float)
+
+    def score(self, lifetimes_h) -> Dict[str, float]:
+        """Goodness-of-fit summary over `residuals` (Estimator protocol)."""
+        r = self.residuals(lifetimes_h)
+        if r.size == 0:
+            raise ValueError("LifetimeLaw.score: no finite lifetimes")
+        return {"n": int(r.size), "mae": float(np.abs(r).mean()),
+                "max_abs": float(np.abs(r).max())}
+
+    def params_hash(self) -> str:
+        """Stable digest of the law's fitted parameters. The default
+        hashes every public scalar/array field in name order; laws with
+        non-field state (hazard grids, caches) override this."""
+        from repro_torch.calibration.estimator import params_hash as _phash
+        parts: list = [type(self).__name__]
+        fields = (dataclasses.fields(self)
+                  if dataclasses.is_dataclass(self) else None)
+        names = ([f.name for f in fields] if fields is not None
+                 else sorted(k for k in vars(self) if not k.startswith("_")))
+        for name in names:
+            v = getattr(self, name)
+            if isinstance(v, (str, int, float, np.ndarray)):
+                parts.extend([name, v])
+        return _phash(*parts)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,16 +2,23 @@
 `params_hash`, the Estimator protocol of `GPUStepTimeModel`,
 `PSBottleneckModel` and `ClusterSpeedEstimator`, `CusumDetector`,
 `ModelStore` versioning and its static seeding, `Recalibrator` observe /
-notify sequences, `Session.models`, and the `straggler` live chaos run
-with recalibration armed (drift, refit, post-refit deviation)."""
+notify sequences, `Session.models`, the `straggler` live chaos run
+with recalibration armed (drift, refit, post-refit deviation), the
+Estimator protocol of the §V lifetime laws (`LifetimeModel` and each
+provider's `LifetimeLaw`), and the transfer path (`transfer_*`,
+`fit_p24_effects`, `holdout_p24_report`)."""
+import dataclasses
+
 import numpy as np
 import pytest
 
 from repro_torch import calibration as tcal
+from repro_torch import providers as tproviders
 from repro_torch.api import Session
 from repro_torch.core import profiler as tprofiler
 from repro_torch.core.perf_model import cluster_model as tcluster
 from repro_torch.core.perf_model import speed_model as tspeed
+from repro_torch.core.transient import revocation as trevocation
 from torch_live_harness import assert_same_run, run_live_pair
 
 
@@ -21,11 +28,13 @@ def J():
     pytest.importorskip("jax")
     import types
 
-    from repro import calibration
+    from repro import calibration, providers
     from repro.core import profiler
     from repro.core.perf_model import cluster_model, speed_model
+    from repro.core.transient import revocation
     return types.SimpleNamespace(cal=calibration, profiler=profiler,
-                                 cluster=cluster_model, speed=speed_model)
+                                 cluster=cluster_model, speed=speed_model,
+                                 revocation=revocation, providers=providers)
 
 
 @pytest.mark.parametrize("parts", [
@@ -246,3 +255,115 @@ def test_live_straggler_with_recalibration_matches_the_reference(
     assert "model_drift" in kinds and "model_refit" in kinds
     assert pair.tchild.models.version("cluster_speed") == \
         recal["model_version"]
+
+
+# ------------------------------------------- §V lifetime laws (protocol)
+def _lifetimes(seed, n=40, survive=0.3):
+    rng = np.random.default_rng(seed)
+    lt = rng.weibull(1.3, n) * 9.0
+    lt[rng.uniform(size=n) < survive] = np.inf
+    return lt
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("cell", [("us-central1", "v100"),
+                                  ("us-west1", "k80"),
+                                  ("europe-west1", "p100"),
+                                  ("mars-east1", "v100")])
+def test_lifetime_model_protocol_equals_the_reference(J, seed, cell):
+    """`LifetimeModel.fit/predict/update/score/params_hash`; a cell with
+    no Fig 8 hint takes the default shape, as the reference's does."""
+    lt = _lifetimes(seed)
+    got = trevocation.LifetimeModel.fit(*cell, lt)
+    want = J.revocation.LifetimeModel.fit(*cell, lt)
+    assert got.params_hash() == want.params_hash()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for t_h in (0.5, 6.0, 24.0):
+        assert got.predict(t_h) == want.predict(t_h)
+    assert got.score(lt) == want.score(lt)
+    lt2 = _lifetimes(seed + 10, survive=0.6)
+    assert got.update(lt2).params_hash() == want.update(lt2).params_hash()
+    assert got.fit(*cell, lt, k=2.0).k == 2.0
+    assert isinstance(got, tcal.Estimator)
+    for mod in (trevocation, J.revocation):
+        with pytest.raises(ValueError, match="no observed"):
+            mod.LifetimeModel.fit(*cell, [])
+        with pytest.raises(ValueError, match="no observed"):
+            got.score([])
+
+
+@pytest.mark.parametrize("provider", ["gcp", "aws", "azure"])
+def test_every_laws_protocol_equals_the_reference(J, provider):
+    """Each offered (region, gpu) law of each market: `params_hash` and
+    `score` equal the reference's, and `residuals` for the
+    `LifetimeLaw`s (AWS, Azure; GCP's laws are `LifetimeModel`s)."""
+    tp, jp = tproviders.get_provider(provider), J.providers.get_provider(
+        provider)
+    seen = set()
+    for off in tp.offerings():
+        tl = tp.lifetime_model(off.region, off.gpu)
+        jl = jp.lifetime_model(off.region, off.gpu)
+        h = tl.params_hash()
+        assert h == jl.params_hash(), (provider, off)
+        seen.add(h)
+        lt = _lifetimes(len(seen))
+        assert tl.score(lt) == jl.score(lt)
+        if not isinstance(tl, trevocation.LifetimeModel):
+            np.testing.assert_array_equal(tl.residuals(lt),
+                                          jl.residuals(lt))
+            assert tl.residuals(lt).shape == (int(np.isfinite(lt).sum()),)
+            with pytest.raises(ValueError, match="no finite"):
+                tl.score(np.array([np.inf]))
+    # distinct cells calibrate to distinct parameters
+    assert len(seen) == len(tp.offerings())
+
+
+# ------------------------------------------------------------ transfer
+@pytest.mark.parametrize("target", ["k80", "p100", "v100"])
+def test_step_time_transfer_equals_the_reference(J, target):
+    got = tcal.transfer_step_time_model(target)
+    want = J.cal.transfer_step_time_model(target)
+    assert got.params_hash() == want.params_hash()
+    # a card the spec sheet lacks, given its peak
+    got = tcal.transfer_step_time_model("h100", target_teraflops=989.0)
+    want = J.cal.transfer_step_time_model("h100", target_teraflops=989.0)
+    assert got.params_hash() == want.params_hash()
+    assert got.gpu == "h100" and np.all(got.t_anchors > 0)
+    srcs = {g: m for g, m in tspeed.calibrate_generators().items()
+            if g != target}
+    jsrcs = {g: m for g, m in J.speed.calibrate_generators().items()
+             if g != target}
+    assert (tcal.transfer_step_time_model(target, srcs).params_hash()
+            == J.cal.transfer_step_time_model(target, jsrcs).params_hash())
+
+
+def test_transfer_refuses_as_the_reference(J):
+    for mod in (tcal, J.cal):
+        with pytest.raises(KeyError, match="unknown gpu"):
+            mod.transfer_step_time_model("h100")
+        with pytest.raises(ValueError, match="no source"):
+            mod.transfer_step_time_model("v100", sources={})
+        with pytest.raises(ValueError, match="positive"):
+            mod.transfer_step_time_model("h100", target_teraflops=0.0)
+        with pytest.raises(KeyError, match="never observed"):
+            mod.transfer_p24("mars-east1", "v100")
+        with pytest.raises(ValueError, match=">= 3"):
+            mod.fit_p24_effects({("a", "k80"): 0.5, ("b", "k80"): 0.4})
+
+
+def test_lifetime_transfer_equals_the_reference(J):
+    assert tcal.fit_p24_effects() == J.cal.fit_p24_effects()
+    eff = tcal.fit_p24_effects()
+    for (region, gpu) in trevocation.TABLE5_RATES:
+        assert tcal.transfer_p24(region, gpu, eff) == J.cal.transfer_p24(
+            region, gpu)
+        got = tcal.transfer_lifetime_model(region, gpu)
+        want = J.cal.transfer_lifetime_model(region, gpu)
+        assert got.params_hash() == want.params_hash()
+    assert list(tcal.holdout_p24_report()) == list(
+        J.cal.holdout_p24_report())
+    rates = dict(trevocation.TABLE5_RATES)
+    rates[("us-east1", "k80")] = 0.2
+    assert tcal.fit_p24_effects(rates) == J.cal.fit_p24_effects(rates)
+    assert list(tcal.holdout_p24_report(rates)) == list(
+        J.cal.holdout_p24_report(rates))
