@@ -13,7 +13,10 @@ Phases, each of which exits non-zero on failure:
 3. kernels: hold each kernel against its plain PyTorch version on the card
             (flash-attention forward: out and lse; flash-attention
             backward: dq, dk, dv, both also at the live plans' S=32 and
-            at phase 15's train-step (B, S) grid; RMSNorm; the SSD scan
+            at phase 15's train-step (B, S) grid; the RMSNorm forward
+            and backward kernels at every width the port normalises, the
+            backward also against autograd over the plain forward and
+            two of its calls bit for bit; the SSD scan
             at the mamba2 and zamba2 shapes and phase 15's grid, on views
             of one conv output as the Mamba2 block cuts them, and two
             calls bit for bit; event select, bit for bit, at the fleet
@@ -21,9 +24,11 @@ Phases, each of which exits non-zero on failure:
             where one exists, one PyTorch library call, with TFLOP/s and
             the share of the bound reached (the flash forward also at the
             training shape and at zamba2's; the SSD scan by stage, with its
-            host time per call); RMSNorm's and F.rms_norm's device
-            time (torch.profiler) beside their host-paced per-call times;
-            the host cost of RMSNorm's
+            host time per call); at the four training shapes of the norms,
+            both RMSNorm kernels' device time (torch.profiler) and
+            host-paced per-call time beside their bounds, F.rms_norm's
+            forward and backward and the autograd recompute the backward
+            kernel replaced; the host cost of RMSNorm's
             dispatch through its autograd Function; the SSD backward
             (autograd over the plain version);
 4-7b. qwen3-1.7b (dense), full width:
@@ -35,10 +40,11 @@ Phases, each of which exits non-zero on failure:
             RMSNorm launches as predicted per step, and the gateway's
             logits at the last prompt position agree with prefill's;
    6. train: `Session.train` (4 steps, B=2, S=2048, AdamW): 28 flash
-            forward, 28 flash backward and 113 RMSNorm launches per step,
-            finite losses and gradient norms, a first loss near ln(vocab),
-            every parameter changed by step 1; step time, tokens/s, MFU,
-            peak memory and the device's busy share;
+            forward, 28 flash backward and 113 RMSNorm forward and 113
+            backward launches per step, finite losses and gradient norms,
+            a first loss near ln(vocab), every parameter changed by step
+            1; step time, tokens/s, MFU, peak memory, the device's busy
+            share and RMSNorm's device time and kernels in a step;
    7. parity: one `make_train_step` cut to 2 layers at full width, on the
             card (kernels) and on the CPU (plain versions), from one set
             of weights and one batch: loss, gradient norm and every
@@ -49,7 +55,8 @@ Phases, each of which exits non-zero on failure:
 8-11. mamba2-1.3b (Mamba2 SSD), full width: prefill (48 SSD and 97
             RMSNorm launches), serve (97 RMSNorm launches a decode step,
             no SSD: decode is the recurrence), train (48 SSD and 97
-            RMSNorm launches a step) and parity, as in 4-7;
+            RMSNorm forward and backward launches a step) and parity, as
+            in 4-7; prefill and serve launch no backward;
 12. zamba2-1.2b (Mamba2 + one shared attention block), full width:
             prefill (38 SSD, 6 flash, 89 RMSNorm launches) and serve (89
             RMSNorm launches a decode step), as in 4-5;
@@ -75,8 +82,8 @@ Phases, each of which exits non-zero on failure:
             write over 100 GB: failed, retried and recovered saves and the
             fallback drill. Each scenario's gates must pass, every live
             step launch the flash kernels 28 times each way and RMSNorm
-            113 times, and its ledger (checks, mitigations, drift alarms,
-            refits, virtual seconds) equal the port's CPU run of the
+            113 times each way, and its ledger (checks, mitigations, drift
+            alarms, refits, virtual seconds) equal the port's CPU run of the
             scenario at SMOKE; each scheme's step ms, each rebuild's ms,
             peak memory and each scenario's seconds are printed.
 15. model leg: the paper's §III-§V models fitted on the card's own
@@ -145,6 +152,11 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # as tests/test_kernels.py
 # 2.7e-3 for each of dq, dk, dv at both bf16 shapes: about 3.7x margin
 BWD_TOL = {"bfloat16": 2e-2, "float32": 3e-4}
 BWD_NORM_TOL = 1e-2
+# RMSNorm backward kernel vs the plain backward and vs autograd over the
+# plain forward: (dx of max |dx|, dx in Frobenius norm, dscale of max
+# |dscale|). fp32 as the flash backward; bf16 dx is rounded once in each,
+# after sums taken in another order; dscale is fp32 in both
+RN_BWD_TOL = {"bfloat16": (2e-2, 1e-2, 1e-3), "float32": (3e-4, 3e-4, 3e-4)}
 # train step on the card (bf16, kernels) vs the CPU (bf16, plain versions),
 # 2 layers at full width. Calibrated on the first chip run (PERF.md §6),
 # which gave 3.6e-5, 1.9e-4 and 1.2e-2: the scalars differ only by the
@@ -194,11 +206,16 @@ SSD_VIEW_CASES = [(1, 2048, 64, 64, 1, 128, 256, "bfloat16"),
                   (2, 200, 8, 32, 2, 16, 200, "bfloat16")]
 
 SEQ, N_TOKENS, N_BATCH, PROMPT_LEN = 2048, 16, 4, 32
+# qwen3-1.7b's train step (B=2, S=2048) as the port ran it with RMSNorm's
+# backward as autograd over the plain forward: RMSNorm's device ms and
+# kernels a step, and the step's kernels and copies (measured by
+# scripts/rmsnorm_step_share.py on an H100 80GB HBM3 at 700 W; PERF.md §6)
+NORM_STEP_RECOMPUTE = {"qwen3-1.7b": (55.189, 2938, 7112)}
 # what `chaos.runner._run_live` trains at (global_batch=4, seq_len=32)
 LIVE_BATCH, LIVE_SEQ = 4, 32
 TRAIN_STEPS, TRAIN_BATCH = 4, 2
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
-           "ssd_scan_fwd", "event_select_fwd")
+           "rmsnorm_bwd", "ssd_scan_fwd", "event_select_fwd")
 # H100 SXM float64 rate outside the tensor cores (NVIDIA's data sheet); the
 # event select does one comparison per element
 PEAK_F64_FLOPS = 34e12
@@ -281,12 +298,12 @@ def device_profile(torch, fn, n: int, count=None, host: bool = True,
     """Run ``fn`` n times under torch.profiler. Returns the device time per
     call summed over kernels and copies (ms) and that time by kernel name,
     largest first; a dict given as ``count`` receives the number of
-    device events per call under "events". The profiler slows the host,
-    so host wall times are taken without it; ``host=False`` leaves the
-    host's ops out of the trace, which a train step's tens of thousands
-    of them make slow to read back. A trace that holds no device event
-    at all (the tracer dropped it) is taken again, up to ``tries`` times
-    in all, and then fails."""
+    device events per call under "events", and by name under "by_name".
+    The profiler slows the host, so host wall times are taken without it;
+    ``host=False`` leaves the host's ops out of the trace, which a train
+    step's tens of thousands of them make slow to read back. A trace that
+    holds no device event at all (the tracer dropped it) is taken again,
+    up to ``tries`` times in all, and then fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
@@ -296,12 +313,13 @@ def device_profile(torch, fn, n: int, count=None, host: bool = True,
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        by_name, events = {}, 0
+        by_name, n_by_name, events = {}, {}, 0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 events += 1
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3 / n)
+                n_by_name[e.name] = n_by_name.get(e.name, 0) + 1 / n
         if events:
             break
         say(f"  the profiler saw no device event in {n} call(s); again")
@@ -309,14 +327,33 @@ def device_profile(torch, fn, n: int, count=None, host: bool = True,
         fail(f"the profiler saw no device event in {tries} traces")
     if count is not None:
         count["events"] = events / n
+        count["by_name"] = n_by_name
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return sum(by_name.values()), ranked
+
+
+def device_ms(torch, fn, n: int, fragment: str = "", flush=None) -> float:
+    """Device ms a call of ``fn``'s kernels whose names hold ``fragment``
+    (all of them when it is empty). With ``flush``, a tensor larger than
+    the 50 MB L2, an argmax over it runs before each call, so the call
+    finds its inputs in device memory and L2 full of clean lines (a read
+    leaves nothing to write back); the argmax's kernels, which no kernel
+    measured here runs, are left out."""
+    if flush is None:
+        run = fn
+    else:
+        def run():
+            torch.argmax(flush)
+            fn()
+    _, ranked = device_profile(torch, run, n)
+    return sum(t for name, t in ranked
+               if fragment in name and "ArgMax" not in name)
 
 
 # kernel-name fragments -> the category a breakdown sums them under
 CATEGORIES = (("flash_fwd_", "flash forward (ours)"),
               ("flash_bwd_", "flash backward (ours)"),
-              ("rmsnorm_kernel", "RMSNorm (ours)"),
+              ("rmsnorm_", "RMSNorm forward and backward (ours)"),
               ("ssd_", "SSD scan (ours)"),
               ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"),
               ("copy_kernel", "copies and dtype casts"),
@@ -690,9 +727,22 @@ def phase_train(c, tag: str, arch: str, per_step: dict,
                                                     seed=1), TRAIN_BATCH)
     batch = {k_: torch.from_numpy(v_).to(c.dev)
              for k_, v_ in loader.next_global(1).items()}
-    say_profile("one train step", step_s * 1e3, *device_profile(
-        torch, lambda: trainer.train_step(trainer.state, batch), 1),
-                top=12, by_category=True)
+    n_ev = {}
+    busy_ms, ranked = device_profile(
+        torch, lambda: trainer.train_step(trainer.state, batch), 1,
+        count=n_ev)
+    say_profile("one train step", step_s * 1e3, busy_ms, ranked, top=12,
+                by_category=True)
+    norm_ms = kernel_ms(ranked, "rmsnorm_")
+    norm_n = sum(k for name, k in n_ev["by_name"].items()
+                 if "rmsnorm_" in name)
+    was = NORM_STEP_RECOMPUTE.get(arch)
+    say(f"  RMSNorm forward and backward on the device: {norm_ms:.3f} ms "
+        f"in {norm_n:.0f} kernels a step ({100 * norm_ms / busy_ms:.2f}% of "
+        f"the busy time; {n_ev['events']:.0f} kernels and copies in the "
+        "step)" + ("" if was is None else
+                   f"; with the backward as autograd over the plain forward"
+                   f" it took {was[0]} ms in {was[1]} kernels of {was[2]}"))
     state = trainer.state
     zeros = c.tree_map(torch.zeros_like, state.params)
     opt_ms = time_ms(torch, lambda: trainer.opt.update(
@@ -978,10 +1028,10 @@ def phase_live(c, tag: str) -> dict:
     seconds) must equal that of the port's own CPU run of the scenario at
     SMOKE in fp32 (the clock prices a step from the plan and the mitigated
     PS alone); every live step must launch the flash kernels once per
-    layer each way and RMSNorm once per norm. Prints each compression
-    scheme's step ms, the time of each mitigation's step rebuild, peak
-    memory against its reckoning, and each scenario's seconds. Returns
-    the launches."""
+    layer each way and RMSNorm once per norm each way. Prints each
+    compression scheme's step ms, the time of each mitigation's step
+    rebuild, peak memory against its reckoning, and each scenario's
+    seconds. Returns the launches."""
     import dataclasses
     from repro_torch.api import session as session_mod
     from repro_torch.calibration import RecalibrationConfig
@@ -1067,7 +1117,8 @@ def phase_live(c, tag: str) -> dict:
         n_norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
         want = counts(flash_attention_fwd=L * n_steps,
                       flash_attention_bwd=L * n_steps,
-                      rmsnorm_fwd=n_norms * n_steps)
+                      rmsnorm_fwd=n_norms * n_steps,
+                      rmsnorm_bwd=n_norms * n_steps)
         n_params = sum(t.numel() for _, t in c.flatten(
             child.trainer.state.params))
         # fp32 params, gradients and two AdamW moments; with compression
@@ -1573,6 +1624,219 @@ def phase_models(c, tag: str, per_step: dict) -> dict:
     return launches
 
 
+def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
+    """Phase 3's RMSNorm part. The forward and backward kernels held
+    against the plain versions at every width the port normalises (the
+    backward also against autograd over the plain forward, and two of its
+    calls bit for bit); both timed at the four training shapes beside
+    their bounds, F.rms_norm's forward and backward and the autograd
+    recompute; the dispatch's host cost. Adds the two kernels' rows to
+    `report`. ``k`` carries torch, F, rn, ref, ops, get_config and dev."""
+    torch, F, rn, ref, ops, dev = k.torch, k.F, k.rn, k.ref, k.ops, k.dev
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    # RMSNorm, forward and backward kernels, at every width the port
+    # normalises: qwen3's residual, q- and k-norm at the train shape (B=2,
+    # S=2048) and prefill's (B=1), mamba2's gated norm, a decode step's
+    # rows, the masked instances at SMOKE widths, and fp32 as the fp32
+    # models run them; the backward held against the plain backward and
+    # against autograd over the plain forward (the parent's recompute)
+    mcfg_ = k.get_config("mamba2-1.3b", smoke=False)
+    d_gated = mcfg_.ssm.expand * mcfg_.d_model
+    eps = cfg.norm_eps
+    rn_errs, rnb_errs = [], []
+    for rows, dim, dtype in [
+            (SEQ, d, "bfloat16"), (TRAIN_BATCH * SEQ, d, "bfloat16"),
+            (TRAIN_BATCH * SEQ * H, hd, "bfloat16"),
+            (TRAIN_BATCH * SEQ * KV, hd, "bfloat16"),
+            (TRAIN_BATCH * SEQ, d_gated, "bfloat16"),
+            (N_BATCH, d, "bfloat16"), (37, 256, "bfloat16"),
+            (N_BATCH, d, "float32"), (3, hd, "float32"),
+            (N_BATCH, d_gated, "float32"), (5, 32, "float32")]:
+        x = randn((rows, dim), getattr(torch, dtype), 4)
+        dy = randn((rows, dim), getattr(torch, dtype), 8)
+        scale = torch.linspace(0.5, 1.5, dim, device=dev)
+        tag = f"rmsnorm ({rows}, {dim}) {dtype}"
+        got = rn.rmsnorm_fwd(x, scale, eps)
+        want = ref.rmsnorm_ref(x, scale, eps)
+        torch.cuda.synchronize()
+        rn_errs.append(compare(torch, tag, got, want, dtype))
+        dx, ds = rn.rmsnorm_bwd(x, scale, dy, eps)
+        xr = x.detach().requires_grad_()
+        sr = scale.detach().requires_grad_()
+        oracles = (("plain", ref.rmsnorm_bwd_ref(x, scale, dy, eps)),
+                   ("autograd", torch.autograd.grad(
+                       ref.rmsnorm_ref(xr, sr, eps), (xr, sr), dy)))
+        torch.cuda.synchronize()
+        tol_dx, norm_dx, tol_ds = RN_BWD_TOL[dtype]
+        for oracle, (w_dx, w_ds) in oracles:
+            rnb_errs.append(compare_scaled(
+                torch, f"{tag} bwd dx vs {oracle}", dx, w_dx, tol_dx,
+                norm_dx))
+            rnb_errs.append(compare_scaled(
+                torch, f"{tag} bwd dscale vs {oracle}", ds, w_ds, tol_ds,
+                tol_ds))
+        del x, dy, got, want, dx, ds, xr, sr, oracles
+    for rows, dim in ((TRAIN_BATCH * SEQ, d), (TRAIN_BATCH * SEQ * H, hd)):
+        x = randn((rows, dim), torch.bfloat16, 4)
+        dy = randn((rows, dim), torch.bfloat16, 8)
+        scale = torch.linspace(0.5, 1.5, dim, device=dev)
+        first = rn.rmsnorm_bwd(x, scale, dy, eps)
+        again = rn.rmsnorm_bwd(x, scale, dy, eps)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        say(f"  rmsnorm_bwd ({rows}, {dim}) bf16: two calls "
+            f"{'bit for bit equal' if same else 'DIFFER'}")
+        if not same:
+            fail("two RMSNorm backward calls differ")
+        del x, dy, first, again
+
+    # time both kernels at the four training shapes beside their bounds,
+    # F.rms_norm forward and backward (torch's own kernels, a bf16
+    # weight) and the autograd recompute the backward kernel replaced:
+    # device time with L2 warm (the call repeated, its last outputs
+    # still dirty in L2) and clean (`device_ms` with a flush)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+    def recompute(x, scale, dy):
+        xr = x.detach().requires_grad_()
+        sr = scale.detach().requires_grad_()
+        return torch.autograd.grad(ref.rmsnorm_ref(xr, sr, eps), (xr, sr),
+                                   dy)
+
+    for what, rows, dim in (("qwen3 residual", TRAIN_BATCH * SEQ, d),
+                            ("qwen3 q-norm", TRAIN_BATCH * SEQ * H, hd),
+                            ("qwen3 k-norm", TRAIN_BATCH * SEQ * KV, hd),
+                            ("mamba2 gated", TRAIN_BATCH * SEQ, d_gated)):
+        x = randn((rows, dim), torch.bfloat16, 4)
+        dy = randn((rows, dim), torch.bfloat16, 8)
+        scale = torch.linspace(0.5, 1.5, dim, device=dev)
+        xl = x.detach().requires_grad_()
+        wl = scale.to(torch.bfloat16).requires_grad_()
+        yl = F.rms_norm(xl, (dim,), wl, eps)
+
+        def fwd():
+            rn.rmsnorm_fwd(x, scale, eps)
+
+        def bwd():
+            rn.rmsnorm_bwd(x, scale, dy, eps)
+
+        def lib_fwd():
+            F.rms_norm(x, (dim,), wl, eps)
+
+        def lib_bwd():
+            torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)
+        f_ms, b_ms = time_ms(torch, fwd), time_ms(torch, bwd)
+        f_dev, _ = device_profile(torch, fwd, 20)
+        n_b = {}
+        b_dev, b_ranked = device_profile(torch, bwd, 20, count=n_b)
+        lf_dev, lf_ranked = device_profile(torch, lib_fwd, 20)
+        lb_dev, lb_ranked = device_profile(torch, lib_bwd, 20)
+        n_rec = {}
+        rec_dev, _ = device_profile(torch, lambda: recompute(x, scale, dy),
+                                    5, count=n_rec)
+        f_cold, b_cold, lf_cold, lb_cold = (
+            device_ms(torch, fn, 20, frag, flush) for fn, frag in (
+                (fwd, "rmsnorm_"), (bwd, "rmsnorm_"), (lib_fwd, ""),
+                (lib_bwd, "")))
+        n = rows * dim
+        f_bytes, b_bytes = 2 * 2 * n + 4 * dim, 3 * 2 * n + 2 * 4 * dim
+        f_bound = f_bytes / HBM_BYTES_PER_S * 1e3
+        b_bound = b_bytes / HBM_BYTES_PER_S * 1e3
+        say(f"  rmsnorm {what} ({rows}, {dim}) bf16, device ms with L2 "
+            f"warm / clean: forward {f_dev:.4f} / {f_cold:.4f} "
+            f"({100 * f_bound / f_dev:.0f}% / {100 * f_bound / f_cold:.0f}% "
+            f"of its bound, {f_bound:.4f} ms for {f_bytes / 1e6:.2f} MB), "
+            f"{f_ms:.4f} ms per call; F.rms_norm {lf_dev:.4f} / "
+            f"{lf_cold:.4f} ({f_dev / lf_dev:.2f}x / {f_cold / lf_cold:.2f}x)"
+            f"; backward {b_dev:.4f} / {b_cold:.4f} in "
+            f"{n_b['events']:.0f} kernel(s) ({100 * b_bound / b_dev:.0f}% / "
+            f"{100 * b_bound / b_cold:.0f}% of its bound, {b_bound:.4f} ms "
+            f"for {b_bytes / 1e6:.2f} MB), {b_ms:.4f} ms per call; "
+            f"F.rms_norm's backward {lb_dev:.4f} / {lb_cold:.4f} "
+            f"({b_dev / lb_dev:.2f}x / {b_cold / lb_cold:.2f}x); the "
+            f"autograd recompute it replaced {rec_dev:.4f} (warm) in "
+            f"{n_rec['events']:.0f} kernels")
+        for name, t_ in b_ranked:
+            say(f"    backward kernel: {t_:.4f} ms  {name[:80]}")
+        for label, ranked in (("forward", lf_ranked),
+                              ("backward", lb_ranked)):
+            for name, t_ in ranked:
+                say(f"    F.rms_norm {label}: {t_:.4f} ms  {name[:80]}")
+        if what == "qwen3 residual":
+            plain_ms = time_ms(torch, lambda: ref.rmsnorm_bwd_ref(
+                x, scale, dy, eps))
+            lib_ms = time_ms(torch, lib_bwd)
+            flops = 10.0 * n     # x^2, g, g x, dx and dy x r, per element
+            report["rmsnorm_bwd"] = dict(
+                route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                replaces="src/repro/kernels/ops.py:104",
+                max_abs_err=max(rnb_errs), ms=b_ms, plain_ms=plain_ms,
+                bound_ms=max(b_bytes / HBM_BYTES_PER_S,
+                             flops / PEAK_FLOPS["float32"]) * 1e3,
+                bound_by=("bytes" if b_bytes / HBM_BYTES_PER_S
+                          >= flops / PEAK_FLOPS["float32"]
+                          else "operations"),
+                library_ms=lib_ms)
+            say(f"    rmsnorm_bwd: kernel {b_ms:.4f} ms per call, plain "
+                f"{plain_ms:.4f} ms, F.rms_norm's backward {lib_ms:.4f} ms "
+                "per call")
+        del x, dy, scale, xl, wl, yl
+    del flush
+
+    scale_main = torch.linspace(0.5, 1.5, d, device=dev)
+    x = randn((SEQ, d), torch.bfloat16, 4)
+    w_lib = scale_main.to(torch.bfloat16)
+    ms = time_ms(torch, lambda: rn.rmsnorm_fwd(x, scale_main, eps))
+    plain_ms = time_ms(torch, lambda: ref.rmsnorm_ref(x, scale_main, eps))
+    lib_ms = time_ms(torch, lambda: F.rms_norm(x, (d,), w_lib, eps))
+    nbytes = 2 * x.numel() * 2 + 4 * d
+    flops = 4.0 * x.numel()
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"])
+    report["rmsnorm_fwd"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:23",
+        max_abs_err=max(rn_errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound * 1e3,
+        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                  >= flops / PEAK_FLOPS["float32"] else "operations"),
+        library_ms=lib_ms)
+    rn_dev_ms, _ = device_profile(
+        torch, lambda: rn.rmsnorm_fwd(x, scale_main, eps), 20)
+    # F.rms_norm's own device time (all its kernels) beside the kernel's:
+    # both calls are host-paced, so their per-call times compare the host
+    lib_dev_ms, lib_ranked = device_profile(
+        torch, lambda: F.rms_norm(x, (d,), w_lib, eps), 20)
+    say(f"  rmsnorm_fwd @ ({SEQ}, {d}) bf16: kernel {ms:.4f} ms per call "
+        f"({rn_dev_ms:.4f} ms on the device), plain "
+        f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms per call "
+        f"({lib_dev_ms:.4f} ms on the device in {len(lib_ranked)} "
+        f"kernel(s)), bound {bound * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB / "
+        f"3.35 TB/s); on the device the kernel takes "
+        f"{rn_dev_ms / lib_dev_ms:.2f}x F.rms_norm's time and "
+        f"{100 * bound * 1e3 / rn_dev_ms:.0f}% of its bound")
+    say_rate("kernel", ms, flops, bound * 1e3)
+    # host cost of dispatch through the autograd Function, at the decode
+    # shape and under no_grad as a decode step calls it (113 per step)
+    xd = randn((N_BATCH, d), torch.bfloat16, 4)
+    host_us = {}
+    with torch.no_grad():
+        for label, fn in (("ops.rmsnorm", ops.rmsnorm),
+                          ("rmsnorm_fwd", rn.rmsnorm_fwd)):
+            for _ in range(200):
+                fn(xd, scale_main, eps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn(xd, scale_main, eps)
+            torch.cuda.synchronize()
+            host_us[label] = (time.perf_counter() - t0) / 2000 * 1e6
+    extra_us = host_us["ops.rmsnorm"] - host_us["rmsnorm_fwd"]
+    say(f"  dispatch @ ({N_BATCH}, {d}) bf16, no_grad: ops.rmsnorm "
+        f"{host_us['ops.rmsnorm']:.2f} us per call, bare wrapper "
+        f"{host_us['rmsnorm_fwd']:.2f} us: the autograd Function adds "
+        f"{extra_us:.2f} us, {extra_us * 113 / 1e3:.3f} ms per decode step")
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     t_start = time.monotonic()
     import torch
@@ -1801,74 +2065,9 @@ def main() -> int:
     say_rate("sdpa backward", lib_ms, flops, bound * 1e3)
     del q, k, v, do, out, lse, qt, kt, vt, sdpa_out, dot
 
-    rn_errs = []
-    scale_main = torch.linspace(0.5, 1.5, d, device=dev)
-    for rows, dim, dtype in [(SEQ, d, "bfloat16"), (N_BATCH, d, "bfloat16"),
-                             (SEQ * H, hd, "bfloat16"), (N_BATCH, d, "float32"),
-                             (3, hd, "float32")]:
-        x = randn((rows, dim), getattr(torch, dtype), 4)
-        scale = torch.linspace(0.5, 1.5, dim, device=dev)
-        got = rn.rmsnorm_fwd(x, scale, cfg.norm_eps)
-        want = ref.rmsnorm_ref(x, scale, cfg.norm_eps)
-        torch.cuda.synchronize()
-        rn_errs.append(compare(torch, f"rmsnorm ({rows}, {dim}) {dtype}",
-                               got, want, dtype))
-    x = randn((SEQ, d), torch.bfloat16, 4)
-    w_lib = scale_main.to(torch.bfloat16)
-    ms = time_ms(torch, lambda: rn.rmsnorm_fwd(x, scale_main, cfg.norm_eps))
-    plain_ms = time_ms(torch, lambda: ref.rmsnorm_ref(x, scale_main,
-                                                      cfg.norm_eps))
-    lib_ms = time_ms(torch, lambda: F.rms_norm(x, (d,), w_lib, cfg.norm_eps))
-    nbytes = 2 * x.numel() * 2 + 4 * d
-    flops = 4.0 * x.numel()
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"])
-    report["rmsnorm_fwd"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-        replaces="src/repro/kernels/rmsnorm.py:23",
-        max_abs_err=max(rn_errs), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound * 1e3,
-        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                  >= flops / PEAK_FLOPS["float32"] else "operations"),
-        library_ms=lib_ms)
-    _, ranked = device_profile(
-        torch, lambda: rn.rmsnorm_fwd(x, scale_main, cfg.norm_eps), 20)
-    # F.rms_norm's own device time (all its kernels) beside the kernel's:
-    # both calls are host-paced, so their per-call times compare the host
-    rn_dev_ms = kernel_ms(ranked, 'rmsnorm_kernel')
-    lib_dev_ms, lib_ranked = device_profile(
-        torch, lambda: F.rms_norm(x, (d,), w_lib, cfg.norm_eps), 20)
-    say(f"  rmsnorm_fwd @ ({SEQ}, {d}) bf16: kernel {ms:.4f} ms per call "
-        f"({rn_dev_ms:.4f} ms on the device), plain "
-        f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms per call "
-        f"({lib_dev_ms:.4f} ms on the device in {len(lib_ranked)} "
-        f"kernel(s)), bound {bound * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB / "
-        f"3.35 TB/s); kernel at {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s; on the "
-        f"device the kernel takes {rn_dev_ms / lib_dev_ms:.2f}x F.rms_norm's "
-        "time")
-    for name, t_ in lib_ranked:
-        say(f"    F.rms_norm: {t_:.4f} ms  {name[:80]}")
-    say_rate("kernel", ms, flops, bound * 1e3)
-    # host cost of dispatch through the autograd Function, at the decode
-    # shape and under no_grad as a decode step calls it (113 per step)
-    xd = randn((N_BATCH, d), torch.bfloat16, 4)
-    host_us = {}
-    with torch.no_grad():
-        for label, fn in (("ops.rmsnorm", ops.rmsnorm),
-                          ("rmsnorm_fwd", rn.rmsnorm_fwd)):
-            for _ in range(200):
-                fn(xd, scale_main, cfg.norm_eps)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(2000):
-                fn(xd, scale_main, cfg.norm_eps)
-            torch.cuda.synchronize()
-            host_us[label] = (time.perf_counter() - t0) / 2000 * 1e6
-    extra_us = host_us["ops.rmsnorm"] - host_us["rmsnorm_fwd"]
-    say(f"  dispatch @ ({N_BATCH}, {d}) bf16, no_grad: ops.rmsnorm "
-        f"{host_us['ops.rmsnorm']:.2f} us per call, bare wrapper "
-        f"{host_us['rmsnorm_fwd']:.2f} us: the autograd Function adds "
-        f"{extra_us:.2f} us, {extra_us * 113 / 1e3:.3f} ms per decode step")
-    torch.cuda.synchronize()
+    rmsnorm_kernels(types.SimpleNamespace(
+        torch=torch, F=F, rn=rn, ref=ref, ops=ops, get_config=get_config,
+        dev=dev), cfg, randn, report)
 
     ssd_errs = []
 
@@ -2102,14 +2301,16 @@ def main() -> int:
     # 14 hd per causal pair and head for the attention products (4
     # forward, 10 backward)
     train_step_launches = {"qwen3-1.7b": counts(
-        flash_attention_fwd=L, flash_attention_bwd=L, rmsnorm_fwd=n_norms)}
+        flash_attention_fwd=L, flash_attention_bwd=L, rmsnorm_fwd=n_norms,
+        rmsnorm_bwd=n_norms)}
     add(phase_train(
         c, "6/15", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
         14.0 * hd * pairs * H * TRAIN_BATCH * L,
         "6 N per token plus the attention products"))
     phase_parity(c, "7/15", "qwen3-1.7b",
                  counts(flash_attention_fwd=2, flash_attention_bwd=2,
-                        rmsnorm_fwd=4 * 2 + 1), PARITY_TOL)
+                        rmsnorm_fwd=4 * 2 + 1, rmsnorm_bwd=4 * 2 + 1),
+                 PARITY_TOL)
 
     # --------------------------------------- 7b. checkpoint and resume
     say("[7b/15] resume: SMOKE config, checkpoint_interval=2; 4 steps "
@@ -2149,12 +2350,14 @@ def main() -> int:
     ssd_step = 3.0 * L * ssd_flops(TRAIN_BATCH, SEQ, heads, ms_.head_dim,
                                    ms_.n_groups, ms_.d_state, ms_.chunk_size)
     train_step_launches["mamba2-1.3b"] = counts(ssd_scan_fwd=L,
-                                                rmsnorm_fwd=n_norms)
+                                                rmsnorm_fwd=n_norms,
+                                                rmsnorm_bwd=n_norms)
     add(phase_train(c, "10/15", "mamba2-1.3b",
                     train_step_launches["mamba2-1.3b"], ssd_step,
                     "6 N per token plus the SSD products"))
     phase_parity(c, "11/15", "mamba2-1.3b",
-                 counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1),
+                 counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1,
+                        rmsnorm_bwd=2 * 2 + 1),
                  SSM_PARITY_TOL)
 
     # ----------------------------------------- 12. zamba2-1.2b, hybrid
@@ -2184,7 +2387,8 @@ def main() -> int:
 
     # ------------------------------------------------------------ result
     kernels = []
-    for name, row in report.items():
+    for name in KERNELS:
+        row = report[name]
         if main_path[name] == 0:
             fail(f"{name} never launched on the main path")
         kernels.append({"name": name, "route": row["route"],

@@ -99,32 +99,39 @@ def build() -> pathlib.Path:
     return target
 
 
+_P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_float)
+#: each C entry point's argument types and result type
+SIGNATURES = {
+    "repro_flash_attention_fwd": (
+        [_P] * 5 + [_I32] * 7 + [_I64] * 9 + [_F32, _I32, _P], _I32),
+    "repro_flash_attention_bwd": (
+        [_P] * 10 + [_I32] * 7 + [_I64] * 15 + [_F32, _I32, _P], _I32),
+    "repro_rmsnorm_fwd": ([_P] * 3 + [_I64, _I32, _F32, _I32, _P], _I32),
+    "repro_rmsnorm_bwd": ([_P] * 6 + [_I64, _I32, _F32, _I32, _P], _I32),
+    "repro_rmsnorm_bwd_workspace_bytes": ([_I64, _I32, _I32], _I64),
+    "repro_ssd_scan_fwd": (
+        [_P] * 7 + [_I64] + [_I32] * 7 + [_I64] * 12 + [_P], _I32),
+    "repro_ssd_scan_workspace_bytes": ([_I32] * 6, _I64),
+    "repro_event_select_fwd": ([_P] * 3 + [_I64, _I32, _I32, _P], _I32),
+}
+
+
+def bind(lib: ctypes.CDLL, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Declare the argument and result types of the entry points `names`
+    on a loaded library: this one, or a variant built from an edited
+    source, which holds only that source's entry points."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = SIGNATURES[name]
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.repro_flash_attention_fwd.argtypes = (
-            [ptr] * 5 + [i32] * 7 + [i64] * 9
-            + [ctypes.c_float, i32, ptr])
-        lib.repro_flash_attention_fwd.restype = i32
-        lib.repro_flash_attention_bwd.argtypes = (
-            [ptr] * 10 + [i32] * 7 + [i64] * 15
-            + [ctypes.c_float, i32, ptr])
-        lib.repro_flash_attention_bwd.restype = i32
-        lib.repro_rmsnorm_fwd.argtypes = [ptr, ptr, ptr, i64, i32,
-                                          ctypes.c_float, i32, ptr]
-        lib.repro_rmsnorm_fwd.restype = i32
-        lib.repro_ssd_scan_fwd.argtypes = (
-            [ptr] * 7 + [i64] + [i32] * 7 + [i64] * 12 + [ptr])
-        lib.repro_ssd_scan_fwd.restype = i32
-        lib.repro_ssd_scan_workspace_bytes.argtypes = [i32] * 6
-        lib.repro_ssd_scan_workspace_bytes.restype = i64
-        lib.repro_event_select_fwd.argtypes = [ptr, ptr, ptr, i64, i32, i32,
-                                               ptr]
-        lib.repro_event_select_fwd.restype = i32
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(build())))
     return _lib
 
 

@@ -11,9 +11,9 @@ reference's `jax.custom_vjp`):
 
 * flash attention: the forward kernel, whose (q, k, v, out, lse) are
   saved, and the backward kernel (``csrc/flash_attention_bwd.cu``);
-* RMSNorm: the forward kernel, and a backward by recompute — autograd
-  over `ref.rmsnorm_ref`, as the reference's `_rn_bwd` takes `jax.vjp` of
-  its oracle (it has no Pallas backward);
+* RMSNorm: the forward kernel, whose (x, scale) are saved, and the
+  backward kernel (``csrc/rmsnorm.cu``), where the reference's `_rn_bwd`
+  takes `jax.vjp` of its oracle (it has no Pallas backward);
 * SSD scan: the forward kernel (``csrc/ssd_scan.cu``), whose inputs are
   saved, and a backward by recompute — autograd over `ref.ssd_scan_ref`
   at the same chunk, as the reference's `_ssd_bwd`;
@@ -42,7 +42,8 @@ from repro_torch.kernels import ssd_scan as ss
 
 launches: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd": 0, "rmsnorm_fwd": 0,
-                            "ssd_scan_fwd": 0, "event_select_fwd": 0}
+                            "rmsnorm_bwd": 0, "ssd_scan_fwd": 0,
+                            "event_select_fwd": 0}
 
 
 def reset_launches() -> None:
@@ -92,14 +93,12 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        with torch.enable_grad():
-            xr = x.detach().requires_grad_(ctx.needs_input_grad[0])
-            sr = scale.detach().requires_grad_(ctx.needs_input_grad[1])
-            y = ref.rmsnorm_ref(xr, sr, ctx.eps)
-            wrt = [t for t in (xr, sr) if t.requires_grad]
-            grads = iter(torch.autograd.grad(y, wrt, dy))
-        return (next(grads) if xr.requires_grad else None,
-                next(grads) if sr.requires_grad else None, None)
+        # one count a call, whether the kernel sums dscale in one launch
+        # or two
+        dx, dscale = rn.rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps,
+                                    need_dscale=ctx.needs_input_grad[1])
+        launches["rmsnorm_bwd"] += 1
+        return dx, dscale, None
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,

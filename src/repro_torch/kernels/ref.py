@@ -85,6 +85,21 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of `rmsnorm_ref` given ``dy``, from the formula, in
+    fp32: with ``r = rsqrt(mean(x^2) + eps)``, ``xh = x r`` and
+    ``g = dy scale``, ``dx = r (g - xh mean(g xh))`` cast once to x's
+    dtype, and ``dscale`` the sum of ``dy xh`` over every row, in fp32."""
+    x32, dy32 = x.float(), dy.float()
+    r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    xh = x32 * r
+    g = dy32 * scale.float()
+    dx = r * (g - xh * torch.mean(g * xh, dim=-1, keepdim=True))
+    dscale = (dy32 * xh).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale
+
+
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
     """The Mamba2 SSD chunked scan in fp32, cast back to x's dtype: the

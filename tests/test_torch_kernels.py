@@ -154,7 +154,8 @@ def test_flash_kernel_matches_plain_on_card(cuda, B, S, H, KV, hd, causal,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows,d", [(1, 2048), (37, 2048), (300, 128)])
+@pytest.mark.parametrize("rows,d", [(1, 2048), (37, 2048), (300, 128),
+                                    (64, 4096), (5, 32), (37, 256)])
 def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, d, dtype):
     from repro_torch.kernels import rmsnorm as rn
     tol = _TOL[dtype]
@@ -168,10 +169,59 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(1, 2048), (37, 2048), (300, 128),
+                                    (64, 4096), (4096, 2048)])
+def test_rmsnorm_bwd_kernel_matches_plain_on_card(cuda, rows, d, dtype):
+    """dx and dscale against `ref.rmsnorm_bwd_ref`: fp32 3e-4 of max; bf16
+    dx 2e-2 of max and 1e-2 in Frobenius norm (one rounding each, after
+    sums in another order), dscale (fp32 in both) 1e-3 of max."""
+    from repro_torch.kernels import rmsnorm as rn
+    _, (x, dy) = _inputs(4, [(rows, d), (rows, d)], dtype)
+    x, dy = x.to(cuda), dy.to(cuda)
+    scale = torch.linspace(0.5, 1.5, d, device=cuda)
+    dx, ds = rn.rmsnorm_bwd(x, scale, dy, 1e-6)
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert dx.dtype == x.dtype and dx.shape == x.shape
+    assert ds.dtype == torch.float32 and ds.shape == (d,)
+    assert bool(torch.isfinite(dx).all()) and bool(torch.isfinite(ds).all())
+    tol_dx, tol_ds = (3e-4, 3e-4) if dtype == "float32" else (2e-2, 1e-3)
+    err = dx.float() - want_dx.float()
+    assert float(err.abs().max()) <= tol_dx * float(want_dx.abs().max())
+    if dtype == "bfloat16":
+        assert float(err.norm() / want_dx.float().norm()) <= 1e-2
+    assert float((ds - want_ds).abs().max()) <= tol_ds * float(
+        want_ds.abs().max())
+    # without dscale, dx is the same
+    only_dx, no_ds = rn.rmsnorm_bwd(x, scale, dy, 1e-6, need_dscale=False)
+    assert no_ds is None and torch.equal(only_dx, dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(4096, 2048), (65536, 128)])
+def test_rmsnorm_bwd_kernel_is_deterministic_on_card(cuda, rows, d):
+    """No float atomics: dscale's partials are added in a fixed order,
+    so two calls give the same bits."""
+    from repro_torch.kernels import rmsnorm as rn
+    _, (x, dy) = _inputs(5, [(rows, d), (rows, d)], "bfloat16")
+    x, dy = x.to(cuda), dy.to(cuda)
+    scale = torch.linspace(0.5, 1.5, d, device=cuda)
+    first = rn.rmsnorm_bwd(x, scale, dy, 1e-6)
+    again = rn.rmsnorm_bwd(x, scale, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
 def test_cuda_tensors_launch_the_kernels(cuda):
     before = dict(ops.launches)
     x = torch.randn(8, 128, device=cuda)
     ops.rmsnorm(x, torch.ones(128, device=cuda))
+    # one backward call counts one launch, whatever the CUDA launches
+    xg = x.clone().requires_grad_()
+    sg = torch.ones(128, device=cuda, requires_grad=True)
+    torch.autograd.grad(ops.rmsnorm(xg, sg), (xg, sg), torch.ones_like(x))
     q = x.reshape(1, 8, 1, 128)
     ops.flash_attention(q, q, q)
     ops.ssd_scan(*_ssd_inputs(cuda, 1, 64, 2, 32, 1, 16, torch.float32),
@@ -183,7 +233,8 @@ def test_cuda_tensors_launch_the_kernels(cuda):
     assert ops.launches == {**before,
                             "flash_attention_fwd":
                                 before["flash_attention_fwd"] + 1,
-                            "rmsnorm_fwd": before["rmsnorm_fwd"] + 1,
+                            "rmsnorm_fwd": before["rmsnorm_fwd"] + 2,
+                            "rmsnorm_bwd": before["rmsnorm_bwd"] + 1,
                             "ssd_scan_fwd": before["ssd_scan_fwd"] + 2}
 
 
