@@ -113,10 +113,30 @@ Phases, each of which exits non-zero on failure:
             1,024 held against the CPU's batched plan (the fleet
             contract). The fits are printed, not gated, beyond being
             finite and positive.
+16. recorded trace and serving fleet: (a) `Session.chaos(
+            "recorded_trace", engine="jit", smoke=True)` on a SMOKE qwen3
+            session at 65,536 trajectories: the replayed trace's faults on
+            the device engine, its gates passing, at least one
+            event-select launch a round and no other kernel; the faulted
+            ensemble at 1,024 held against the CPU session's batched
+            engine (counts and `finished` exact, times and costs to rtol
+            1e-9), at SMOKE and at full width; the same call at full
+            width at 65,536, counted the same way but with no gate (the
+            reference's own `min_extra_time_s` gate fails at that width);
+            the warm engine's wall and busy share at both widths. (b) `serve_wave`
+            through `Session.chaos(smoke=True)` (4 replicas, 400 requests
+            at 2 req/s, 32 samples): four gates, exact engine parity, and
+            a scorecard equal to a CPU session's. (c)
+            `Session.plan_serving()` at full width equal to the CPU
+            session's plans; 16 decode rounds of a full-width
+            `GatewayEngine` with the plan's 8 slots (113 RMSNorm launches
+            a round), the last round's logits held against a prefill of
+            the same tokens, their p50 printed beside the plan's
+            `token_time_s`.
 
 Then one JSON line per the kernels (launches summed over the prefill,
-serve, train, fleet, live and model-leg phases, each counted from 0), the
-card line again, and the result line
+serve, train, fleet, live, model-leg and trace/serving phases, each
+counted from 0), the card line again, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the repository beside it, it fails
 before printing any result.
@@ -1624,6 +1644,283 @@ def phase_models(c, tag: str, per_step: dict) -> dict:
     return launches
 
 
+# phase 16: the recorded-trace replay held at 1,024 trajectories against
+# the CPU's batched engine, and the decode rounds a `plan_serving` replica
+# runs (SERVE_SLOTS, the plan's batch_ceiling, over its prompt +
+# max_tokens cache; phase 3 holds RMSNorm at these rows)
+TRACE_HOLD_N, TRACE_FULL_N, DECODE_ROUNDS = 1024, 32, 16
+SERVE_SLOTS = 8
+
+
+def trace_sim(session):
+    """`recorded_trace`'s faulted fleet as the chaos runner's ensembles
+    run it (seed 0): (scenario, sim, step budget)."""
+    from repro_torch.chaos.runner import scenario_fleet
+    from repro_torch.chaos.scenarios import get_scenario
+    sc = get_scenario("recorded_trace")
+    return (sc,) + scenario_fleet(session, sc, seed=0)
+
+
+def counted_trace_chaos(c, session, what: str):
+    """`Session.chaos("recorded_trace", engine="jit")` at FLEET_N
+    trajectories, its launches counted from 0: fails unless it launched
+    event select alone, at least once a device-engine round (each
+    `run_jit` call's rounds read through a wrapper: the engine runs as
+    the user's call runs it). Returns (scorecard, launches)."""
+    from repro_torch.core.transient import fleet_jit
+    torch = c.torch
+    rounds = []
+    run_jit = fleet_jit.run_jit
+
+    def counted_run_jit(*args, **kwargs):
+        kwargs.setdefault("stats", {})
+        out = run_jit(*args, **kwargs)
+        rounds.append(kwargs["stats"]["rounds"])
+        return out
+    fleet_jit.run_jit = counted_run_jit
+    try:
+        torch.cuda.synchronize()
+        c.ops.reset_launches()
+        t0 = time.monotonic()
+        out = session.chaos("recorded_trace", engine="jit", live=False,
+                            smoke=True, samples=FLEET_N)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        launches = dict(c.ops.launches)
+    finally:
+        fleet_jit.run_jit = run_jit
+    card = out["scenarios"]["recorded_trace"]
+    simc = card["sim"]
+    say(f"  {what}: {wall_s:.3f}s; {len(rounds)} device-engine runs "
+        f"(faulted and baseline at {FLEET_N}, the parity probe at "
+        f"{simc['parity']['trajectories']}), rounds {rounds}; launches "
+        f"{launches}")
+    say(f"  impact {simc['impact']}; faulted finished "
+        f"{simc['faulted']['finished']}, baseline finished "
+        f"{simc['baseline']['finished']}; parity {simc['parity']}; gates "
+        f"{card['smoke']}")
+    if launches["event_select_fwd"] < sum(rounds) or not rounds or any(
+            v for k, v in launches.items() if k != "event_select_fwd"):
+        fail(f"{what} did not launch event_select alone, once a round")
+    return out, launches
+
+
+def warm_trace_engine(c, session, what: str, reps: int) -> None:
+    """The warm device engine on the faulted fleet, as phase 13 times it:
+    one `run_jit(raw=True)` for its stats, the best of `reps` timed, and
+    one profiled for the device's busy share."""
+    from repro_torch.core.transient import fleet_jit
+    from repro_torch.core.transient.fleet_batched import FleetDraws
+    torch = c.torch
+    sc, sim, n_steps = trace_sim(session)
+    draws = FleetDraws(sim, FLEET_N, 0.0)
+    args = (sim, n_steps, FLEET_N, sc.max_hours, 0.0)
+    stats = {}
+
+    def run(**kw):
+        fleet_jit.run_jit(*args, draws=draws, raw=True,
+                          device=session.device, **kw)
+    run(stats=stats)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    warm_s = min(walls)
+    say(f"  {what}, warm run_jit(raw=True) on the faulted fleet at "
+        f"{FLEET_N}: best of {reps} {warm_s:.4f}s ({walls}), "
+        f"{stats['rounds']} rounds, {FLEET_N / warm_s:.0f} trajectories/s")
+    say_profile(f"one warm run_jit ({what} recorded_trace)", warm_s * 1e3,
+                *device_profile(torch, run, 1), top=4)
+
+
+def trace_held(card_sess, cpu_sess, what: str) -> None:
+    """The faulted ensemble at TRACE_HOLD_N trajectories on the card's
+    device engine against the CPU session's batched engine (the fleet
+    contract: counts and `finished` exact, times and costs to rtol 1e-9)."""
+    sc, sim_g, n_steps = trace_sim(card_sess)
+    _, sim_w, _ = trace_sim(cpu_sess)
+    got = sim_g.run_many(n_steps, TRACE_HOLD_N, max_hours=sc.max_hours,
+                         engine="jit", device=card_sess.device)
+    want = sim_w.run_many(n_steps, TRACE_HOLD_N, max_hours=sc.max_hours,
+                          engine="batched")
+    errs = fleet_parity(what, fleet_raw(got.results), fleet_raw(want.results),
+                        n_steps)
+    say(f"  {what}: held at {TRACE_HOLD_N} trajectories (counts exact, "
+        f"finished {errs['finished']}/{TRACE_HOLD_N}; max relative error "
+        f"time {errs['total_time_s']:.1e}, cost {errs['monetary_cost']:.1e})")
+
+
+def phase_trace_serving(c, tag: str) -> dict:
+    """Phase 16, the recorded trace and the serving fleet. (a)
+    `Session.chaos("recorded_trace", engine="jit")` on a SMOKE qwen3
+    session at FLEET_N trajectories, the counted main path: its gates
+    pass, and it launches event_select at least once a device-engine round
+    and nothing else; the same call on a full-width session, counted the
+    same way but with no gate (the reference's `min_extra_time_s` gate
+    fails there: ROADMAP.md's reference caveat 5); the faulted ensemble
+    held at 1,024 against the CPU's batched engine at both widths; the
+    warm device engine's wall and busy share at both widths. (b)
+    `serve_wave` through `Session.chaos`: its four gates pass, engine
+    parity is exact, and its scorecard equals a CPU session's. (c) `Session.plan_serving()` at full
+    width equals the CPU session's, and 16 counted decode rounds of a
+    full-width `GatewayEngine` with the plan's SERVE_SLOTS slots launch
+    RMSNorm once per norm a round, and the last round's logits agree with
+    a prefill of the same tokens; their p50 is printed beside the plan's
+    `token_time_s` (caveat 6). Returns the launches of (a)'s SMOKE call
+    and (c)'s rounds."""
+    import dataclasses
+
+    from repro_torch.serving import ServingWorkload
+    torch = c.torch
+    t_phase = time.monotonic()
+    card_sess = c.Session.from_arch("qwen3-1.7b", smoke=True)
+    cpu_sess = c.Session.from_arch("qwen3-1.7b", smoke=True, device="cpu")
+    sc, _, n_steps = trace_sim(card_sess)
+    say(f"[{tag}] recorded trace: Session.chaos('recorded_trace', "
+        f"engine='jit', samples={FLEET_N}, smoke=True) on SMOKE qwen3 "
+        f"({sc.description}; {len(sc.faults)} faults, {sc.n_workers} x "
+        f"{sc.gpu} in {sc.region}, {n_steps} steps, {sc.max_hours:.0f} h "
+        "horizon)")
+
+    # (a) the counted main path, gated at SMOKE
+    out, main_launches = counted_trace_chaos(c, card_sess, "SMOKE, counted")
+    if not out["passed"]:
+        fail("recorded_trace's gates failed: "
+             f"{out['scenarios']['recorded_trace']['smoke']['failures']}")
+    trace_held(card_sess, cpu_sess, "SMOKE recorded_trace, card jit vs "
+               "CPU batched")
+    warm_trace_engine(c, card_sess, "SMOKE", 3)
+
+    # the same scenario at full width: counted and timed the same way,
+    # with no gate (caveat 5), and held against the CPU's batched engine
+    full_card = c.Session.from_arch("qwen3-1.7b", smoke=False)
+    full_cpu = c.Session.from_arch("qwen3-1.7b", smoke=False, device="cpu")
+    counted_trace_chaos(c, full_card, "full width, counted (no gate)")
+    warm_trace_engine(c, full_card, "full width", 2)
+    t0 = time.monotonic()
+    fc = full_card.chaos("recorded_trace", engine="jit", live=False,
+                         smoke=True, samples=TRACE_FULL_N)
+    full_s = time.monotonic() - t0
+    fw = full_cpu.chaos("recorded_trace", engine="batched", live=False,
+                        smoke=True, samples=TRACE_FULL_N)
+    fcs, fws = (x["scenarios"]["recorded_trace"]["sim"] for x in (fc, fw))
+    say(f"  full width, {TRACE_FULL_N} trajectories on jit ({full_s:.3f}s): "
+        f"impact {fcs['impact']}, faulted finished "
+        f"{fcs['faulted']['finished']}/{TRACE_FULL_N}, time mean "
+        f"{fcs['faulted']['time_mean_s']:.1f}s; gates (not held) "
+        f"{fc['scenarios']['recorded_trace']['smoke']}")
+    for part in ("faulted", "baseline"):
+        for key in ("revocations_mean", "replacements_mean", "finished"):
+            if fcs[part][key] != fws[part][key]:
+                fail(f"full-width recorded_trace: {part} {key} "
+                     f"{fcs[part][key]} vs the CPU's {fws[part][key]}")
+        if not math.isclose(fcs[part]["time_mean_s"],
+                            fws[part]["time_mean_s"], rel_tol=1e-9):
+            fail(f"full-width recorded_trace: {part} time differs")
+    trace_held(full_card, full_cpu, "full-width recorded_trace, card jit "
+               "vs CPU batched")
+
+    # (b) serve_wave: host NumPy on both sessions, so equal field for field
+    say(f"[{tag}] serve_wave: Session.chaos('serve_wave', smoke=True), 4 "
+        "replicas, 400 requests at 2 req/s, batch ceiling 8, 32 samples; "
+        "the card session's scorecard against a CPU session's")
+    t0 = time.monotonic()
+    sw = card_sess.chaos("serve_wave", smoke=True)
+    sw_s = time.monotonic() - t0
+    sw_cpu = cpu_sess.chaos("serve_wave", smoke=True)
+    serving = sw["scenarios"]["serve_wave"]["serving"]
+    say(f"  {sw_s:.3f}s; impact {serving['impact']}; parity "
+        f"{serving['parity']}; gates {sw['scenarios']['serve_wave']['smoke']}")
+    if not sw["passed"] or not serving["parity"]["counts_equal"] or \
+            serving["parity"]["time_max_rel_err"] != 0.0:
+        fail("serve_wave: a gate failed or the engines differ")
+    if sw != sw_cpu:
+        fail("serve_wave: the card session's scorecard differs from the "
+             "CPU session's")
+    say("  the scorecard equals the CPU session's field for field")
+
+    # (c) plan_serving at full width, and the decode round it prices
+    best, plans = full_card.plan_serving(batch_ceiling=SERVE_SLOTS)
+    cbest, cplans = full_cpu.plan_serving(batch_ceiling=SERVE_SLOTS)
+    if [dataclasses.asdict(p) for p in plans] != \
+            [dataclasses.asdict(p) for p in cplans] or \
+            plans.index(best) != cplans.index(cbest):
+        fail("plan_serving on the card session differs from the CPU's")
+    say(f"[{tag}] plan_serving, full-width qwen3: {len(plans)} cells equal "
+        f"the CPU session's; token_time_s {best.token_time_s} s on the "
+        f"{best.gpu} (the §III rule over batch_ceiling x (prompt + max) "
+        f"tokens); best {best.provider} {best.region} x{best.replicas} "
+        f"meets_slo={best.meets_slo} p99 {best.latency_p99_s} s shed "
+        f"{best.shed_frac:.1%}")
+    wl = ServingWorkload()
+    cfg = full_card.cfg
+    slots = SERVE_SLOTS
+    eng = c.GatewayEngine(cfg, full_card.params, slots=slots,
+                          max_len=wl.prompt_tokens + wl.max_tokens, seed=1,
+                          device=full_card.device)
+    c.gen.manual_seed(11)
+    prompt = torch.randint(0, cfg.vocab_size, (slots, wl.prompt_tokens),
+                           generator=c.gen, device=c.dev)
+    for slot in range(slots):
+        eng.join(slot, rid=slot, prompt=prompt[slot].tolist(),
+                 max_new=wl.max_tokens)
+    emitted = [[] for _ in range(slots)]        # the tokens each round fed
+    for _ in range(wl.prompt_tokens):           # the prompts, uncounted
+        for ev in eng.step():
+            emitted[ev["slot"]].append(ev["token"])
+    torch.cuda.synchronize()
+    n_norms = 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm else 0)
+    c.ops.reset_launches()
+    round_ms = []
+    for _ in range(DECODE_ROUNDS):
+        t0 = time.perf_counter()
+        events = eng.step()
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        for ev in events:
+            emitted[ev["slot"]].append(ev["token"])
+    decode_launches = dict(c.ops.launches)
+    want = counts(rmsnorm_fwd=n_norms * DECODE_ROUNDS)
+    say(f"  {DECODE_ROUNDS} decode rounds of a full-width GatewayEngine, "
+        f"{slots} slots, cache {wl.prompt_tokens + wl.max_tokens}: "
+        f"launches {decode_launches} (predicted {want})")
+    if decode_launches != want:
+        fail("the decode rounds did not launch RMSNorm once per norm")
+    # the last round's logits against a prefill of the tokens it had
+    # read: each prompt and the DECODE_ROUNDS tokens the rounds fed back
+    fed = torch.cat([prompt, torch.tensor(
+        [row[:DECODE_ROUNDS] for row in emitted], device=c.dev)], dim=1)
+    served = eng.last_logits.float()
+    pre = c.make_prefill_step(cfg)(full_card.params,
+                                   {"tokens": fed})[:, -1].float()
+    rel = float((served - pre).abs().max() / pre.abs().max())
+    agree = float((served.argmax(-1) == pre.argmax(-1)).float().mean())
+    say(f"  round {DECODE_ROUNDS}'s logits vs a prefill of the same "
+        f"{fed.shape[1]} tokens ({slots} rows): max|diff|/max|prefill| = "
+        f"{rel:.4e} (held <= {SERVE_VS_PREFILL_TOL}), argmax agreement "
+        f"{agree:.2f}")
+    if not math.isfinite(rel) or rel > SERVE_VS_PREFILL_TOL:
+        fail("the 8-slot decode round disagrees with the prefill path")
+    del served, pre, fed
+    p50 = statistics.median(round_ms)
+    say(f"  decode round p50 {p50:.3f} ms (min {min(round_ms):.3f}, max "
+        f"{max(round_ms):.3f}) on the card, against the plan's token_time_s "
+        f"{best.token_time_s * 1e3:.1f} ms on the {best.gpu}: "
+        f"{best.token_time_s * 1e3 / p50:.0f}x (a finding; the plan is not "
+        "re-priced)")
+    say_profile(f"one decode round ({slots} slots)", p50,
+                *device_profile(torch, eng.step, 2), top=4)
+    launches = counts(event_select_fwd=main_launches["event_select_fwd"],
+                      rmsnorm_fwd=decode_launches["rmsnorm_fwd"])
+    del eng, full_card, full_cpu, card_sess, cpu_sess
+    release(torch)
+    say(f"  phase 16 in {time.monotonic() - t_phase:.1f} s")
+    return launches
+
+
 def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
     """Phase 3's RMSNorm part. The forward and backward kernels held
     against the plain versions at every width the port normalises (the
@@ -1636,9 +1933,10 @@ def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     # RMSNorm, forward and backward kernels, at every width the port
     # normalises: qwen3's residual, q- and k-norm at the train shape (B=2,
-    # S=2048) and prefill's (B=1), mamba2's gated norm, a decode step's
-    # rows, the masked instances at SMOKE widths, and fp32 as the fp32
-    # models run them; the backward held against the plain backward and
+    # S=2048) and prefill's (B=1), mamba2's gated norm, the rows of a
+    # decode step at phase 5's N_BATCH and phase 16's SERVE_SLOTS slots,
+    # the masked instances at SMOKE widths, and fp32 as the fp32 models
+    # run them; the backward held against the plain backward and
     # against autograd over the plain forward (the parent's recompute)
     mcfg_ = k.get_config("mamba2-1.3b", smoke=False)
     d_gated = mcfg_.ssm.expand * mcfg_.d_model
@@ -1649,7 +1947,9 @@ def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
             (TRAIN_BATCH * SEQ * H, hd, "bfloat16"),
             (TRAIN_BATCH * SEQ * KV, hd, "bfloat16"),
             (TRAIN_BATCH * SEQ, d_gated, "bfloat16"),
-            (N_BATCH, d, "bfloat16"), (37, 256, "bfloat16"),
+            (N_BATCH, d, "bfloat16"), (N_BATCH * KV, hd, "bfloat16"),
+            (SERVE_SLOTS, d, "bfloat16"), (SERVE_SLOTS * H, hd, "bfloat16"),
+            (SERVE_SLOTS * KV, hd, "bfloat16"), (37, 256, "bfloat16"),
             (N_BATCH, d, "float32"), (3, hd, "float32"),
             (N_BATCH, d_gated, "float32"), (5, 32, "float32")]:
         x = randn((rows, dim), getattr(torch, dtype), 4)
@@ -1875,19 +2175,19 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
-    say(f"[1/15] card: {card}")
+    say(f"[1/16] card: {card}")
     say(f"      torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count={torch.cuda.device_count()}")
 
     # --------------------------------------------------------- 2. build
     t0 = time.monotonic()
     _build.library()
-    say(f"[2/15] build: {_build.library_path().name} in "
+    say(f"[2/16] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
     say_build(_build)
 
     # ------------------------------------------------ 3. kernels vs plain
-    say("[3/15] kernels vs plain versions")
+    say("[3/16] kernels vs plain versions")
     cfg = get_config("qwen3-1.7b", smoke=False)
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     report = {}
@@ -2290,10 +2590,10 @@ def main() -> int:
     L = cfg.n_layers
     n_norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
     session, params, launches = phase_prefill(
-        c, "4/15", "qwen3-1.7b",
+        c, "4/16", "qwen3-1.7b",
         counts(flash_attention_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "5/15", session, params,
+    add(phase_serve(c, "5/16", session, params,
                     counts(rmsnorm_fwd=n_norms), SERVE_VS_PREFILL_TOL))
     del session, params
     release(torch)
@@ -2304,16 +2604,16 @@ def main() -> int:
         flash_attention_fwd=L, flash_attention_bwd=L, rmsnorm_fwd=n_norms,
         rmsnorm_bwd=n_norms)}
     add(phase_train(
-        c, "6/15", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
+        c, "6/16", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
         14.0 * hd * pairs * H * TRAIN_BATCH * L,
         "6 N per token plus the attention products"))
-    phase_parity(c, "7/15", "qwen3-1.7b",
+    phase_parity(c, "7/16", "qwen3-1.7b",
                  counts(flash_attention_fwd=2, flash_attention_bwd=2,
                         rmsnorm_fwd=4 * 2 + 1, rmsnorm_bwd=4 * 2 + 1),
                  PARITY_TOL)
 
     # --------------------------------------- 7b. checkpoint and resume
-    say("[7b/15] resume: SMOKE config, checkpoint_interval=2; 4 steps "
+    say("[7b/16] resume: SMOKE config, checkpoint_interval=2; 4 steps "
         "straight vs 2 steps + a new Session restoring at step 2 for 2 more")
     kw = dict(global_batch=4, seq_len=128)
     with tempfile.TemporaryDirectory() as dir_a, \
@@ -2338,9 +2638,9 @@ def main() -> int:
     L = mcfg.n_layers
     n_norms = 2 * L + 1                       # ln and gated norm, final
     session, params, launches = phase_prefill(
-        c, "8/15", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
+        c, "8/16", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "9/15", session, params,
+    add(phase_serve(c, "9/16", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
@@ -2352,10 +2652,10 @@ def main() -> int:
     train_step_launches["mamba2-1.3b"] = counts(ssd_scan_fwd=L,
                                                 rmsnorm_fwd=n_norms,
                                                 rmsnorm_bwd=n_norms)
-    add(phase_train(c, "10/15", "mamba2-1.3b",
+    add(phase_train(c, "10/16", "mamba2-1.3b",
                     train_step_launches["mamba2-1.3b"], ssd_step,
                     "6 N per token plus the SSD products"))
-    phase_parity(c, "11/15", "mamba2-1.3b",
+    phase_parity(c, "11/16", "mamba2-1.3b",
                  counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1,
                         rmsnorm_bwd=2 * 2 + 1),
                  SSM_PARITY_TOL)
@@ -2366,24 +2666,27 @@ def main() -> int:
     n_shared = L // zcfg.shared_attn_every
     n_norms = 2 * L + 2 * n_shared + 1
     session, params, launches = phase_prefill(
-        c, "12/15", "zamba2-1.2b",
+        c, "12/16", "zamba2-1.2b",
         counts(ssd_scan_fwd=L, flash_attention_fwd=n_shared,
                rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "12/15", session, params,
+    add(phase_serve(c, "12/16", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
     release(torch)
 
     # --------------------------------------- 13. the fleet device engine
-    add(phase_fleet(c, "13/15"))
+    add(phase_fleet(c, "13/16"))
 
     # ------------------------------------- 14. the §VI-B live chaos loop
-    add(phase_live(c, "14/15"))
+    add(phase_live(c, "14/16"))
 
     # ------------------------- 15. the §III-§V model leg, fitted on the card
-    add(phase_models(c, "15/15", train_step_launches))
+    add(phase_models(c, "15/16", train_step_launches))
+
+    # ------------------- 16. the recorded trace and the serving fleet
+    add(phase_trace_serving(c, "16/16"))
 
     # ------------------------------------------------------------ result
     kernels = []
@@ -2399,7 +2702,7 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
-    say(f"phases 1-15 in {time.monotonic() - t_start:.1f} s")
+    say(f"phases 1-16 in {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     print(json.dumps({"ok": True, "device": {

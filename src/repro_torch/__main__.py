@@ -4,6 +4,7 @@
     python -m repro_torch train --arch qwen3-1.7b --full --steps 4 \
         --global-batch 2 --seq 2048
     python -m repro_torch serve --arch qwen3-1.7b --full --tokens 16
+    python -m repro_torch serve --fleet --providers gcp,aws
     python -m repro_torch plan --score sim --engine jit [--provider aws]
     python -m repro_torch predict --gpu v100 --workers 4 [--provider azure]
     python -m repro_torch simulate --samples 65536 --engine jit
@@ -34,10 +35,14 @@ def build_parser():
     cli.add_resilience_args(t)
     cli.add_recalib_args(t)
     s = sub.add_parser("serve", help="gateway prefill + token-by-token "
-                                     "decode on the card")
+                                     "decode on the card, or --fleet "
+                                     "SLO-aware serving planning")
     cli.add_arch_arg(s)
     cli.add_scale_args(s)
     cli.add_serve_args(s)
+    cli.add_serve_fleet_args(s)
+    # resilience flags shape the --fleet plan (drain/handover vs stock)
+    cli.add_resilience_args(s)
     for name, hlp in (("plan", "revocation-aware launch planning (§V-C); "
                                "--score sim --engine jit on the card"),
                       ("simulate", "discrete-event fleet simulation "
@@ -139,6 +144,32 @@ def _cmd_train(args) -> int:
 
 def _cmd_serve(args) -> int:
     session = cli.session_from_args(args)
+    if args.fleet:
+        from repro_torch.serving import ServingSLO, ServingWorkload
+        workload = ServingWorkload(n_requests=args.requests,
+                                   arrival_rate_per_s=args.rate,
+                                   prompt_tokens=args.prompt_len,
+                                   max_tokens=args.tokens)
+        best, plans = session.plan_serving(
+            replica_counts=tuple(int(x) for x in
+                                 args.replica_counts.split(",")),
+            providers=tuple(args.providers.split(",")),
+            gpu=args.gpu, workload=workload,
+            slo=ServingSLO(p99_latency_s=args.slo_p99),
+            resilience=cli.resilience_from_args(args),
+            samples=args.plan_samples, seed=args.seed)
+        print(f"# serving plan: arch={args.arch} gpu={args.gpu} "
+              f"slo_p99={args.slo_p99}s requests={args.requests} "
+              f"@{args.rate}/s")
+        for p in plans:
+            mark = "*" if p is best else " "
+            print(f"{mark} {p.provider:<7s} {p.region:<16s} "
+                  f"x{p.replicas:<3d} slo={'ok ' if p.meets_slo else 'MISS'}"
+                  f" p50={p.latency_p50_s:7.3f}s p99={p.latency_p99_s:7.3f}s"
+                  f" completed={p.completed_frac:5.1%}"
+                  f" shed={p.shed_frac:5.1%} drop={p.drop_frac:5.1%}"
+                  f" ${p.cost_per_1k:.4f}/1k")
+        return 0
     rep = session.serve(args.tokens, batch=args.batch,
                         prompt_len=args.prompt_len,
                         temperature=args.temperature, seed=args.seed)

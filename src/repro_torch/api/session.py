@@ -1,6 +1,6 @@
 """`Session` — the programmatic surface of the port, for the verbs ported
-so far: `describe`, `plan`, `predict`, `train`, `serve`, `simulate` and
-`chaos` (the twin of the JAX package's `api/session.py`).
+so far: `describe`, `plan`, `plan_serving`, `predict`, `train`, `serve`,
+`simulate` and `chaos` (the twin of the JAX package's `api/session.py`).
 
     s = Session.from_arch("qwen3-1.7b", smoke=False)   # on the card
     best, plans = s.plan(gpu="v100", score="sim", engine="jit")  # §V-C
@@ -9,6 +9,7 @@ so far: `describe`, `plan`, `predict`, `train`, `serve`, `simulate` and
     out = s.serve(tokens=16)                           # the trained weights
     ens = s.simulate(samples=65536, engine="jit")      # §VI-A fleet sim
     card = s.chaos("ps_crash", smoke=True)             # the §VI-B live loop
+    best, cells = s.plan_serving()                     # the serving fleet
 
 A Session runs on the card unless it is built with ``device="cpu"``; with
 no CUDA device and no explicit CPU request, building one raises.
@@ -283,13 +284,52 @@ class Session:
             device=self.device)
         return best, plans
 
-    def plan_serving(self, *args, **kwargs):
-        """The SLO-aware serving-fleet planner of the JAX package's
-        Session; not ported."""
-        raise NotImplementedError(
-            "plan_serving (the serving fleet: serving/planner.py and its "
-            "simulator) is not ported to repro_torch yet (ROADMAP.md, "
-            "queue 1 item 13)")
+    def plan_serving(self, *,
+                     replica_counts=(2, 4, 8),
+                     providers=("gcp", "aws"),
+                     regions=None,
+                     gpu: str = "v100",
+                     workload=None,
+                     slo=None,
+                     batch_ceiling: int = 8,
+                     policy=None,
+                     resilience: Optional[object] = None,
+                     samples: int = 8,
+                     horizon_s: float = 3600.0,
+                     seed: int = 0):
+        """SLO-aware serving fleet planning (docs/serving.md).
+
+        The serving sibling of `plan()`: scores every (replica_count,
+        provider, region) cell with a full `ServingFleetSim` ensemble —
+        revocations from each market's lifetime law, drain/handover under
+        the session's resilience config — and ranks meets-SLO-first, then
+        cheapest $/1k completed requests. The per-token decode time comes
+        from this session's calibrated §III step-time model for `gpu`, so
+        the plan prices this model's decode speed, not a constant. The
+        fleet simulator is host NumPy on every device.
+        """
+        from repro_torch.serving import (ServingSLO, ServingWorkload,
+                                         plan_serving)
+        workload = workload or ServingWorkload()
+        slo = slo or ServingSLO()
+        # decode-round seconds on `gpu`: one token across the batch costs
+        # one model step at the serving batch's complexity
+        token_time_s = 1.0 / self.predict_worker_speed(
+            gpu, seq_len=workload.prompt_tokens + workload.max_tokens,
+            per_worker_batch=batch_ceiling)
+        res = self.run.resilience if resilience is None else resilience
+        best, plans = plan_serving(
+            workload, slo, replica_counts=replica_counts,
+            providers=providers, regions=regions, gpu=gpu,
+            token_time_s=token_time_s, batch_ceiling=batch_ceiling,
+            policy=policy, resilience=res, horizon_s=horizon_s,
+            samples=samples, seed=seed)
+        self.bus.emit("plan_serving", gpu=gpu, cells=len(plans),
+                      best_provider=best.provider,
+                      best_replicas=best.replicas,
+                      best_meets_slo=best.meets_slo,
+                      best_cost_per_1k=best.cost_per_1k)
+        return best, plans
 
     # ------------------------------------------------ Eq (4)/(5) predict
     def predict(self, n_workers: int = 4, gpu: str = "v100",
@@ -412,6 +452,8 @@ class Session:
         if recal_cfg is not None:
             from repro_torch.calibration import Recalibrator
             recalibrator = Recalibrator(config=recal_cfg, store=self.models)
+            if getattr(recal_cfg, "trace_path", None):
+                recalibrator.ingest_trace()
         trainer = TransientTrainer(
             self.cfg, run, loader,
             members=[Member(i) for i in range(members)], holder=holder,

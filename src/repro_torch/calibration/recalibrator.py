@@ -19,9 +19,6 @@ refitting right after a mitigation would bake the degraded speed into the
 model and mask the bottleneck the controller just fixed.
 
 The port's copy of the JAX package's `calibration/recalibrator.py`.
-Recorded-trace ingestion (`ingest_trace`, a config with `trace_path`)
-waits for the port of `calibration/traces.py` and raises
-`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -34,9 +31,6 @@ from .store import ModelStore
 
 MODEL_NAME = "cluster_speed"
 
-_NO_TRACES = ("recorded-trace ingestion (calibration/traces.py) is not "
-              "ported to repro_torch yet (ROADMAP.md, queue 1 item 13)")
-
 
 @dataclasses.dataclass(frozen=True)
 class RecalibrationConfig:
@@ -46,7 +40,7 @@ class RecalibrationConfig:
     refit_window: int = 6           # profiler records the refit consumes
     min_history: int = 3            # need this many records to refit
     cooldown_checks: int = 1        # checks to skip right after a refit
-    trace_path: Optional[str] = None  # recorded provider trace: refused
+    trace_path: Optional[str] = None  # optional recorded provider trace
 
 
 class Recalibrator:
@@ -57,8 +51,6 @@ class Recalibrator:
                  store: Optional[ModelStore] = None,
                  emit: Optional[Callable[[str, dict], None]] = None) -> None:
         self.config = config or RecalibrationConfig()
-        if self.config.trace_path:
-            raise NotImplementedError(f"trace_path: {_NO_TRACES}")
         self.store = store if store is not None else ModelStore()
         self._emit = emit
         self.detector = CusumDetector(allowance=self.config.drift_allowance,
@@ -131,9 +123,32 @@ class Recalibrator:
 
     # ---------------------------------------------------------------- traces
     def ingest_trace(self, path: Optional[str] = None) -> List[str]:
-        """Refit lifetime laws from a recorded eviction trace (the JAX
-        package's method); not ported."""
-        raise NotImplementedError(_NO_TRACES)
+        """Refit lifetime laws from a recorded eviction trace; returns the
+        store names written (`lifetime/trace/<region>/<gpu>`)."""
+        from repro_torch.core.transient.revocation import LifetimeModel
+
+        from .traces import lifetimes_from_trace, load_trace
+
+        p = path or self.config.trace_path
+        if not p:
+            return []
+        events = load_trace(p)
+        cells = sorted({(e.region, e.gpu) for e in events
+                        if e.kind == "eviction"},
+                       key=lambda c: (c[0] or "", c[1] or ""))
+        written = []
+        for region, gpu in cells:
+            lifetimes = lifetimes_from_trace(events, region=region, gpu=gpu)
+            if lifetimes.size < 3:
+                continue
+            est = LifetimeModel.fit(region or "trace", gpu or "any", lifetimes)
+            name = f"lifetime/trace/{region or 'any'}/{gpu or 'any'}"
+            if name in self.store:
+                self.store.update(name, est, note="trace-refit")
+            else:
+                self.store.register(name, est, note="trace")
+            written.append(name)
+        return written
 
     # --------------------------------------------------------------- helpers
     def _fire(self, kind: str, payload: dict) -> None:

@@ -3,13 +3,12 @@ detection & mitigation (the port's copy of the JAX package's `chaos/`):
 
 * `injectors` — fault primitives and the `FaultTimeline` the fleet
   engines consume;
+* `trace_injector` — a recorded provider trace replayed as those
+  primitives;
 * `scenarios` — the named, seeded scenario registry;
 * `evaluator` / `runner` — ground-truth scoring of EventBus histories and
-  the scenario runner behind `Session.chaos` / `python -m repro_torch
-  chaos`.
-
-The trace-replay and serving scenarios wait for ROADMAP.md queue 1 item
-13."""
+  serving fleets, and the scenario runner behind `Session.chaos` /
+  `python -m repro_torch chaos`."""
 from repro_torch.chaos.evaluator import EXPECTED_ACTIONS, score_history
 from repro_torch.chaos.injectors import (CheckpointOutage, FaultTimeline,
                                          PSCrash, PreemptionWave,

@@ -24,9 +24,7 @@ fault spans and scores what the Controller actually did:
 Spans whose kind has an empty expected-action set (checkpoint outages:
 nothing speed-visible to detect) do not count toward detection scoring.
 
-The port's copy of the JAX package's `chaos/evaluator.py`;
-`score_serving`, which scores the serving fleet, waits for ROADMAP.md
-queue 1 item 13.
+The port's copy of the JAX package's `chaos/evaluator.py`.
 """
 from __future__ import annotations
 
@@ -44,6 +42,50 @@ EXPECTED_ACTIONS: Dict[str, Tuple[str, ...]] = {
 
 #: Fault kinds the speed controller is expected to *detect* at all.
 DETECTABLE = ("ps_crash", "straggler")
+
+
+def score_serving(armed: List, stock: List, baseline: List
+                  ) -> Dict[str, object]:
+    """Score a serving-fleet chaos run (docs/serving.md).
+
+    `armed`/`stock` are `ServingSimResult` lists from the *faulted*
+    ensemble with resilience on/off; `baseline` is the armed fleet with
+    no faults (the p99 reference). Returns the `serving.impact` block the
+    serve_wave smoke gates read:
+
+    * **armed_dropped_warned** — in-flight requests lost to *warned*
+      revocations with resilience armed; the drain+handover contract says
+      this is exactly zero.
+    * **drop_delta** — stock minus armed mean in-flight drops: what
+      arming the gateway saved.
+    * **p99_inflation** — armed faulted p99 over armed fault-free p99;
+      admission control bounds this (a queued request sheds at its budget
+      instead of waiting unboundedly).
+    * **recovery_cycles_total** — degraded→full tier transitions summed
+      over the armed ensemble (each is one full degrade/recover arc).
+    """
+    import numpy as np
+
+    def pool_p99(results):
+        lat = np.concatenate([r.latencies_s for r in results])
+        return float(np.percentile(lat, 99)) if lat.size else float("inf")
+
+    def drop_mean(results):
+        return float(np.mean([r.dropped_inflight for r in results]))
+
+    p99_f, p99_b = pool_p99(armed), pool_p99(baseline)
+    return {
+        "armed_dropped_warned": int(sum(r.dropped_warned for r in armed)),
+        "stock_dropped_warned": int(sum(r.dropped_warned for r in stock)),
+        "drop_delta": round(drop_mean(stock) - drop_mean(armed), 6),
+        "p99_faulted_s": round(p99_f, 6),
+        "p99_baseline_s": round(p99_b, 6),
+        "p99_inflation": round(p99_f / max(p99_b, 1e-9), 6),
+        "recovery_cycles_total": int(sum(r.recovery_cycles
+                                         for r in armed)),
+        "degraded_events_total": int(sum(len(r.degraded_events)
+                                         for r in armed)),
+    }
 
 
 def score_history(history: Iterable[Tuple[str, dict]],

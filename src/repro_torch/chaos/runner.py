@@ -25,8 +25,8 @@ fixed (scenario, seed, samples) triple reproduces it bit-for-bit.
 The port's copy of the JAX package's `chaos/runner.py`. The live run
 trains on the session's device (the card unless the session was built
 with ``device="cpu"``), and its checkpoint directory is removed when the
-scenario ends. The serving branch (`_run_serving`, the `serve_wave`
-scenario) waits for ROADMAP.md queue 1 item 13.
+scenario ends. The serving branch (`_run_serving`) runs the serving-fleet
+simulator, host NumPy on every device as in the reference.
 """
 from __future__ import annotations
 
@@ -81,18 +81,25 @@ def _ens_summary(ens) -> Dict[str, float]:
                 [r.restore_delay_s for r in ens.results])), 6)}
 
 
+def scenario_fleet(session, sc: Scenario, seed: int, chaos: bool = True):
+    """The session's fleet for scenario `sc`, its faults armed unless
+    ``chaos=False``: (sim, step budget), as every ensemble of `_run_sim`
+    runs it."""
+    sim, n_steps = session._fleet_sim(
+        n_workers=sc.n_workers, gpu=sc.gpu, region=sc.region,
+        steps=sc.total_steps, seed=seed, handover=sc.handover,
+        provider=sc.provider)
+    if chaos:
+        sim.chaos = sc.timeline(sim._roster, seed=seed)
+    return sim, n_steps
+
+
 def _run_sim(session, sc: Scenario, engine: str, samples: int,
              seed: int) -> Dict[str, object]:
     from repro_torch.core.transient.fleet_batched import FleetDraws
 
     def build(chaos: bool):
-        sim, n_steps = session._fleet_sim(
-            n_workers=sc.n_workers, gpu=sc.gpu, region=sc.region,
-            steps=sc.total_steps, seed=seed, handover=sc.handover,
-            provider=sc.provider)
-        if chaos:
-            sim.chaos = sc.timeline(sim._roster, seed=seed)
-        return sim, n_steps
+        return scenario_fleet(session, sc, seed, chaos)
 
     sim_f, n_steps = build(chaos=True)
     truth = sim_f.chaos.truth_spans()
@@ -141,6 +148,82 @@ def _run_sim(session, sc: Scenario, engine: str, samples: int,
             "extra_lost_steps": round(fs["lost_steps_mean"]
                                       - bs["lost_steps_mean"], 6),
         },
+        "parity": {"trajectories": PARITY_SAMPLES, "engine": probe,
+                   "counts_equal": counts_equal,
+                   "time_max_rel_err": time_err},
+    }
+
+
+def _serving_summary(results) -> Dict[str, object]:
+    from repro_torch.serving import summarize_serving
+    return summarize_serving(results)
+
+
+def _run_serving(session, sc: Scenario, engine: str, samples: int,
+                 seed: int) -> Dict[str, object]:
+    """Serving-fleet scorecard for scenarios carrying a `ServingScript`.
+
+    Always runs the armed-vs-stock pair on the faulted fleet plus an
+    armed fault-free baseline, so the drop-delta and p99-inflation gates
+    hold in any CI invocation — arming here means the session's
+    ResilienceConfig when one is set, else the defaults."""
+    from repro_torch.chaos.evaluator import score_serving
+    from repro_torch.resilience import ResilienceConfig
+    from repro_torch.serving import ReplicaSet, ServingFleetSim
+
+    spec = sc.serving
+    armed_cfg = session.run.resilience or ResilienceConfig()
+
+    def build(chaos: bool, resilience) -> ServingFleetSim:
+        rset = ReplicaSet(spec.replicas, sc.provider, region=sc.region,
+                          gpu=sc.gpu, seed=seed)
+        if chaos:
+            rset.chaos = sc.timeline(rset.roster(), seed=seed)
+        return ServingFleetSim(
+            rset, spec.workload, policy=spec.policy,
+            resilience=resilience, token_time_s=spec.token_time_s,
+            batch_ceiling=spec.batch_ceiling, horizon_s=spec.horizon_s,
+            seed=seed)
+
+    run_engine = engine if engine in ("batched", "event") else "batched"
+    armed = build(True, armed_cfg).run_many(samples, engine=run_engine)
+    stock = build(True, None).run_many(samples, engine=run_engine)
+    baseline = build(False, armed_cfg).run_many(samples, engine=run_engine)
+
+    # two-engine parity probe, same contract as the training sims: the
+    # batched candidate-array engine and the per-trajectory event heap
+    # must agree on every count and every latency
+    probe = "batched" if run_engine == "event" else run_engine
+    pa = build(True, armed_cfg).run_many(PARITY_SAMPLES, engine=probe)
+    pb = build(True, armed_cfg).run_many(PARITY_SAMPLES, engine="event")
+    counts_equal = all(
+        (a.completed, a.shed, a.dropped_inflight, a.dropped_warned,
+         a.handovers, a.requeues, a.hedges, a.revocations, a.replacements,
+         a.recovery_cycles)
+        == (b.completed, b.shed, b.dropped_inflight, b.dropped_warned,
+            b.handovers, b.requeues, b.hedges, b.revocations,
+            b.replacements, b.recovery_cycles)
+        for a, b in zip(pa, pb))
+    time_err = 0.0
+    for a, b in zip(pa, pb):
+        if a.latencies_s.shape != b.latencies_s.shape:
+            counts_equal = False
+            continue
+        if a.latencies_s.size:
+            time_err = max(time_err, float(np.max(
+                np.abs(a.latencies_s - b.latencies_s)
+                / np.maximum(b.latencies_s, 1e-9))))
+        time_err = max(time_err,
+                       abs(a.total_time_s - b.total_time_s)
+                       / max(b.total_time_s, 1e-9))
+
+    return {
+        "engine": run_engine, "samples": samples,
+        "replicas": spec.replicas,
+        "armed": _serving_summary(armed),
+        "stock": _serving_summary(stock),
+        "baseline": _serving_summary(baseline),
+        "impact": score_serving(armed, stock, baseline),
         "parity": {"trajectories": PARITY_SAMPLES, "engine": probe,
                    "counts_equal": counts_equal,
                    "time_max_rel_err": time_err},
@@ -289,7 +372,30 @@ def _check_expectations(sc: Scenario, card: Dict[str, object]) -> List[str]:
         if key in exp and not ok(exp[key]):
             fails.append(f"{key}={exp[key]}: {detail}")
 
+    serving = card.get("serving")
+    if serving is not None:
+        if not serving["parity"]["counts_equal"]:
+            fails.append("serving parity: per-trajectory counts differ")
+        if serving["parity"]["time_max_rel_err"] > 1e-6:
+            fails.append("serving parity: latencies diverge "
+                         f"({serving['parity']['time_max_rel_err']:.2e})")
+        simp = serving["impact"]
+        gate("serving_zero_dropped_warned",
+             lambda v: (not v) or simp["armed_dropped_warned"] == 0,
+             f"got {simp['armed_dropped_warned']} armed warned drops")
+        gate("serving_min_armed_drop_delta",
+             lambda v: simp["drop_delta"] >= v,
+             f"got {simp['drop_delta']}")
+        gate("serving_max_p99_inflation",
+             lambda v: simp["p99_inflation"] <= v,
+             f"got {simp['p99_inflation']}")
+        gate("serving_min_degraded_cycles",
+             lambda v: simp["recovery_cycles_total"] >= v,
+             f"got {simp['recovery_cycles_total']}")
+
     sim = card["sim"]
+    if sim is None:                 # serving-only scenario: no fleet sim
+        return fails
     imp = sim["impact"]
     if not sim["parity"]["counts_equal"]:
         fails.append("engine parity: per-trajectory counts differ")
@@ -378,16 +484,16 @@ def run_scenario(sc: Scenario, *, session=None, engine: str = "batched",
     if session is None:
         from repro_torch.api.session import Session
         session = Session.from_arch("qwen3-1.7b", smoke=True)
-    if sc.serving is not None:
-        raise NotImplementedError(
-            f"scenario {sc.name!r} scripts a serving fleet, which is not "
-            "ported to repro_torch yet (ROADMAP.md, queue 1 item 13)")
     card: Dict[str, object] = {
         "scenario": sc.name, "description": sc.description, "seed": seed,
         "resilience_armed": session.run.resilience is not None,
         "recalibration_armed": session.run.recalibration is not None,
-        "sim": _run_sim(session, sc, engine, samples, seed),
-        "serving": None,            # the reference's card shape
+        # serving scenarios script faults over a ReplicaSet, not a
+        # training fleet — the per-worker training sim would be noise
+        "sim": (None if sc.serving is not None
+                else _run_sim(session, sc, engine, samples, seed)),
+        "serving": (_run_serving(session, sc, engine, samples, seed)
+                    if sc.serving is not None else None),
         "live": (_run_live(session, sc, seed)
                  if live and sc.live is not None else None),
     }

@@ -18,11 +18,10 @@ Register new scenarios with the `@register_scenario` decorator::
 `expect` holds the smoke gates `python -m repro chaos --smoke` enforces;
 see `runner._check_expectations` for the supported keys.
 
-The port's copy of the JAX package's `chaos/scenarios.py`, with the
-seven fleet scenarios. `recorded_trace` (a trace replay) and `serve_wave`
-(a serving fleet) are not carried yet: `get_scenario` raises
-`NotImplementedError` for them, and `list_scenarios` omits them. The live
-plans drive the port's trainer through `runner._run_live`.
+The port's copy of the JAX package's `chaos/scenarios.py`, with every
+scenario of the reference: the fleet scenarios, the `recorded_trace`
+replay, the `serve_wave` serving fleet and the live plans, which drive
+the port's trainer through `runner._run_live`.
 """
 from __future__ import annotations
 
@@ -124,20 +123,7 @@ def register_scenario(fn: Callable[[], Scenario]) -> Callable[[], Scenario]:
     return fn
 
 
-#: the reference's scenarios this package does not carry yet, and the
-#: ROADMAP.md item that ports each
-UNPORTED = {
-    "recorded_trace": "queue 1 item 13 (the trace injector and the "
-                      "calibration traces it replays)",
-    "serve_wave": "queue 1 item 13 (the serving fleet it scripts)",
-}
-
-
 def get_scenario(name: str) -> Scenario:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"scenario {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md, {UNPORTED[name]})")
     if name not in _REGISTRY:
         raise ValueError(f"unknown scenario {name!r}; "
                          f"known: {sorted(_REGISTRY)}")
@@ -267,6 +253,67 @@ def ckpt_outage() -> Scenario:
                 "resilient_live_min_retries": 5,
                 "resilient_live_min_recovered_saves": 1,
                 "resilient_drill_ok": True})
+
+
+@register_scenario
+def recorded_trace() -> Scenario:
+    """Replay of a *recorded* eviction/price trace (docs/calibration.md
+    §traces): the bundled sample afternoon — an eviction cluster riding a
+    spot-price excursion in us-central1 — compiled into standard hazard
+    primitives by `TraceInjector`, so the replay inherits keyed draws,
+    engine parity and the smoke gates. The trace is the port's own copy,
+    read beside this module."""
+    import os
+
+    from repro_torch.chaos.trace_injector import TraceInjector
+
+    inj = TraceInjector.from_file(
+        os.path.join(os.path.dirname(__file__), "data",
+                     "sample_trace.jsonl"),
+        n_workers=4, bid=0.10)
+    return Scenario(
+        name="recorded_trace",
+        description="replay of the bundled us-central1 afternoon trace: "
+                    "a 1 h eviction cluster (~3/h empirical hazard) inside "
+                    "a 1 h price excursion over the $0.10 bid",
+        faults=inj.faults(),
+        provider="gcp", region="us-central1",
+        expect={"min_extra_revocations": 1.0, "min_extra_time_s": 60.0})
+
+
+@register_scenario
+def serve_wave() -> Scenario:
+    """Preemption wave over a *serving* ReplicaSet (docs/serving.md): a
+    4-replica continuous-batching fleet on AWS (2-minute revocation
+    warnings) takes a minutes-scale wave through an open-loop request
+    stream. The runner scores an armed-vs-stock delta: armed, warned
+    replicas drain and hand unfinished requests to survivors (zero
+    in-flight drops — the headline gate) while admission control bounds
+    the p99 inflation; stock drops whatever the wave catches in-flight."""
+    from repro_torch.serving import (ServingDegradationPolicy, ServingScript,
+                                     ServingWorkload)
+
+    return Scenario(
+        name="serve_wave",
+        description="AWS us-east-1 serving fleet: +60/h revocation hazard "
+                    "for 3 min through a 400-request stream at 2 req/s",
+        faults=(PreemptionWave(0.01, 0.05, 60.0),),
+        provider="aws", region="us-east-1",
+        serving=ServingScript(
+            replicas=4, batch_ceiling=8, token_time_s=0.05,
+            horizon_s=1800.0,
+            workload=ServingWorkload(
+                n_requests=400, arrival_rate_per_s=2.0, prompt_tokens=32,
+                min_tokens=8, max_tokens=32, high_priority_frac=0.25,
+                queue_capacity=64, queue_budget_s=15.0,
+                hedge_timeout_s=20.0),
+            policy=ServingDegradationPolicy(
+                reduce_tokens_below=1.0, shrink_batch_below=0.75,
+                shed_below=0.5)),
+        expect={"serving_zero_dropped_warned": True,
+                "serving_min_armed_drop_delta": 1.0,
+                "serving_max_p99_inflation": 20.0,
+                "serving_min_degraded_cycles": 1.0})
 
 
 @register_scenario

@@ -1,6 +1,6 @@
 """Shared argparse wiring for the port's entry points (the twin of the
 JAX package's `launch/cli.py`, for the flags of the ported verbs:
-train, serve, plan, simulate, predict and chaos)."""
+train, serve (and `serve --fleet`), plan, simulate, predict and chaos)."""
 from __future__ import annotations
 
 import argparse
@@ -54,6 +54,27 @@ def add_serve_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--tokens", type=int, default=16)
     p.add_argument("--temperature", type=float, default=0.0)
+
+
+def add_serve_fleet_args(p: argparse.ArgumentParser) -> None:
+    """`serve --fleet` planning flags (docs/serving.md)."""
+    g = p.add_argument_group("fleet planning (--fleet)")
+    g.add_argument("--fleet", action="store_true",
+                   help="plan an SLO-aware serving fleet across transient "
+                        "markets instead of decoding locally")
+    g.add_argument("--gpu", default="v100", choices=("k80", "p100", "v100"))
+    g.add_argument("--providers", default="gcp,aws",
+                   help="comma-separated transient markets to score")
+    g.add_argument("--replica-counts", default="2,4,8",
+                   help="comma-separated fleet sizes to score")
+    g.add_argument("--requests", type=int, default=200,
+                   help="workload size (open-loop Poisson stream)")
+    g.add_argument("--rate", type=float, default=2.0,
+                   help="mean arrivals per second")
+    g.add_argument("--slo-p99", type=float, default=10.0,
+                   help="p99 end-to-end latency SLO, seconds")
+    g.add_argument("--plan-samples", type=int, default=8,
+                   help="simulation trajectories per fleet cell")
 
 
 def add_fleet_args(p: argparse.ArgumentParser,
@@ -143,6 +164,9 @@ def add_recalib_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--refit-window", type=int, default=None,
                    help="trailing profiler records a refit consumes "
                         "(default 6)")
+    g.add_argument("--recalib-trace", default=None,
+                   help="recorded provider trace (JSONL) to refit "
+                        "lifetime laws from at startup")
 
 
 def recalib_from_args(args: argparse.Namespace):
@@ -151,10 +175,12 @@ def recalib_from_args(args: argparse.Namespace):
     if not getattr(args, "recalibrate", False):
         return None
     from repro_torch.calibration import RecalibrationConfig
-    picked = {field: getattr(args, field)
-              for field in ("drift_threshold", "drift_allowance",
-                            "refit_window")
-              if getattr(args, field, None) is not None}
+    picked = {field: getattr(args, attr)
+              for field, attr in (("drift_threshold", "drift_threshold"),
+                                  ("drift_allowance", "drift_allowance"),
+                                  ("refit_window", "refit_window"),
+                                  ("trace_path", "recalib_trace"))
+              if getattr(args, attr, None) is not None}
     return dataclasses.replace(RecalibrationConfig(), **picked)
 
 

@@ -232,12 +232,19 @@ def test_recalibrator_sequences_match_the_reference(J, seed, cfg):
         "cluster_speed")
 
 
-def test_recorded_traces_are_refused():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tcal.Recalibrator(config=tcal.RecalibrationConfig(
-            trace_path="trace.jsonl"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tcal.Recalibrator().ingest_trace("trace.jsonl")
+def test_recorded_traces_are_refused(tmp_path):
+    """A malformed or missing trace is refused as the reference refuses
+    it; no trace ingests nothing (tests/test_torch_traces.py holds the
+    ingestion itself against the reference)."""
+    bad = tmp_path / "bad.jsonl"
+    bad.write_text('{"kind": "meteor", "t_h": 1.0}\n')
+    rec = tcal.Recalibrator(config=tcal.RecalibrationConfig(
+        trace_path=str(bad)))
+    with pytest.raises(ValueError, match="kind"):
+        rec.ingest_trace()
+    with pytest.raises(FileNotFoundError):
+        tcal.Recalibrator().ingest_trace(str(tmp_path / "missing.jsonl"))
+    assert tcal.Recalibrator().ingest_trace() == []
 
 
 def test_live_straggler_with_recalibration_matches_the_reference(

@@ -212,16 +212,15 @@ def test_corpus_jit_matches_reference_engines(rp, prov, region, gpu, nw, ho,
 
 def test_ported_scenarios_are_the_reference_fleet_scenarios(rp):
     names = list_scenarios()
-    assert len(names) == 7
-    assert set(names) == set(rp.scenarios.list_scenarios()) - {
-        "recorded_trace", "serve_wave"}
-    for name in ("recorded_trace", "serve_wave"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_scenario(name)
+    assert len(names) == 9
+    assert names == rp.scenarios.list_scenarios()
+    for name in names:
+        assert get_scenario(name).name == name
 
 
 @pytest.mark.parametrize("name", ["ckpt_outage", "dead_ps", "price_spike",
-                                  "ps_crash", "regional_wave", "straggler",
+                                  "ps_crash", "recorded_trace",
+                                  "regional_wave", "straggler",
                                   "wave_price_combo"])
 def test_jit_parity_every_ported_chaos_scenario(rp, name):
     sc, rsc = get_scenario(name), rp.scenarios.get_scenario(name)

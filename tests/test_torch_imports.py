@@ -24,6 +24,12 @@ def _modules():
 def test_importing_the_port_loads_no_jax_and_no_repro():
     mods = list(_modules())
     assert "repro_torch.kernels.ops" in mods and len(mods) > 20
+    assert {"repro_torch.calibration.traces",
+            "repro_torch.chaos.trace_injector", "repro_torch.serving.queue",
+            "repro_torch.serving.requests", "repro_torch.serving.replica",
+            "repro_torch.serving.degradation",
+            "repro_torch.serving.simulator",
+            "repro_torch.serving.planner"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

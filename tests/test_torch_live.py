@@ -248,11 +248,23 @@ def test_sim_scorecards_match_the_reference(name):
 
 
 def test_serving_scenarios_are_refused():
+    """A serving scenario is refused by the training fleet and by the
+    device engine: it runs no training sim and no live loop, and
+    `engine="jit"` runs the serving fleet on its batched host engine
+    (tests/test_torch_serving_fleet.py holds its scorecards)."""
+    from repro_torch.api import Session
     from repro_torch.chaos import runner as trunner
-    from repro_torch.chaos.scenarios import Scenario
-    sc = Scenario(name="serve", description="", serving=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trunner.run_scenario(sc, session=object())
+    from repro_torch.chaos.scenarios import get_scenario
+    sc = get_scenario("serve_wave")
+    short = dataclasses.replace(sc, serving=dataclasses.replace(
+        sc.serving, workload=dataclasses.replace(sc.serving.workload,
+                                                 n_requests=40)))
+    card = trunner.run_scenario(
+        short, session=Session.from_arch("qwen3-1.7b", device="cpu"),
+        engine="jit", live=True, samples=2)
+    assert card["sim"] is None and card["live"] is None
+    assert card["serving"]["engine"] == "batched"
+    assert card["serving"]["samples"] == 2
 
 
 def test_cli_chaos_smoke(capsys):

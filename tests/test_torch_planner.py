@@ -237,8 +237,8 @@ def test_session_plan_rejects_unsold_cells(session):
         session.plan(gpu="v100", region="us-east1")
     with pytest.raises(ValueError, match="no calibrated speed model"):
         session.predict(gpu="h100")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        session.plan_serving()
+    with pytest.raises(ValueError, match="no calibrated speed model"):
+        session.plan_serving(gpu="h100")
 
 
 # ---------------------------------------------------------------- CLI
