@@ -12,8 +12,9 @@ Phases, each of which exits non-zero on failure:
             / HMMA counts from `cuobjdump -sass`;
 3. kernels: hold each kernel against its plain PyTorch version on the card
             (flash-attention forward: out and lse; flash-attention
-            backward: dq, dk, dv, both also at the live plans' S=32 and
-            at phase 15's train-step (B, S) grid; the RMSNorm forward
+            backward: dq, dk, dv, both also at the live plans' S=32, at
+            phase 15's train-step (B, S) grid and at granite-moe's group
+            of 3 query heads a KV head; the RMSNorm forward
             and backward kernels at every width the port normalises, the
             backward also against autograd over the plain forward and
             two of its calls bit for bit; the SSD scan
@@ -133,9 +134,22 @@ Phases, each of which exits non-zero on failure:
             a round), the last round's logits held against a prefill of
             the same tokens, their p50 printed beside the plan's
             `token_time_s`.
+17. MoE and MLA, full width: granite-moe-3b-a800m (40 experts top-8,
+            GQA 24/8 heads of 64) and deepseek-v2-lite-16b (MLA, 64
+            experts top-6 and 2 shared, a dense first layer). Each: the
+            bf16 prefill (B=1, S=2048) as in 4, launching 32 flash and 65
+            RMSNorm (granite) or 82 RMSNorm and no flash (deepseek: ln1,
+            kv_norm and ln2 a layer, and the final norm), with the pairs
+            its published capacity drops and its parts (expert casts,
+            routing, dispatch, expert products, combine, `_chunked_attn`)
+            timed at layer 0's shapes; serve as in 5 (the prefill's
+            RMSNorm count a decode step), gateway vs prefill held in fp32
+            at the no-drop capacity (capacity_factor = E / k); the train
+            step at 2 layers, full width, fp32, card vs CPU as in 7, with
+            every MoE group's routing equal and the aux loss within 1e-5.
 
 Then one JSON line per the kernels (launches summed over the prefill,
-serve, train, fleet, live, model-leg and trace/serving phases, each
+serve, train, fleet, live, model-leg, trace/serving and MoE phases, each
 counted from 0), the card line again, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the repository beside it, it fails
@@ -143,6 +157,8 @@ before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -378,7 +394,9 @@ CATEGORIES = (("flash_fwd_", "flash forward (ours)"),
               ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"),
               ("copy_kernel", "copies and dtype casts"),
               ("topk", "top-k selection (torch.topk)"),
-              ("Sort", "sorts (torch.topk)"),
+              ("Sort", "sorts (MoE routing and dispatch)"),
+              ("index", "indexing (MoE dispatch and combine, embedding)"),
+              ("softmax", "softmax"),
               ("reduce_kernel", "reductions"),
               ("elementwise", "other elementwise"))
 
@@ -601,18 +619,21 @@ def phase_prefill(c, tag: str, arch: str, want: dict):
         f"{first_ms:.2f} ms), {SEQ / prefill_ms * 1e3:.0f} tok/s, peak "
         f"memory {peak_gb:.2f} GB")
     say_profile("prefill", prefill_ms, *device_profile(
-        torch, lambda: prefill(params, {"tokens": tokens}), 2))
+        torch, lambda: prefill(params, {"tokens": tokens}), 2),
+        by_category=True)
     return session, params, launches
 
 
 def phase_serve(c, tag: str, session, params, per_step: dict, tol: float,
-                in_fp32: bool = False):
+                in_fp32: bool = False, fp32_cfg=None):
     """`Session.serve` twice with one seed: identical greedy streams,
     `per_step` launches in each decode step, and the gateway's logits at
     the last prompt position within `tol` (of max |logit|) of prefill's:
     in the model's dtype with the engine's bf16 state, or with `in_fp32`
-    in an fp32 model and state (the bf16 distance is then printed only).
-    Returns the launches."""
+    in an fp32 model and state (the bf16 distance is then printed only),
+    of `fp32_cfg` where one is given (an MoE config at its no-drop
+    capacity, whose bf16 distance is printed too). Returns the
+    launches."""
     torch = c.torch
     cfg = session.cfg
     steps = PROMPT_LEN + N_TOKENS - 1
@@ -668,8 +689,11 @@ def phase_serve(c, tag: str, session, params, per_step: dict, tol: float,
         return rel, eng
 
     rel, eng = gateway_vs_prefill(cfg, None)
+    if fp32_cfg is not None:     # bf16 without the prefill's drops
+        gateway_vs_prefill(fp32_cfg, None)
     if in_fp32:
-        rel, _ = gateway_vs_prefill(cfg.with_(dtype="float32"), torch.float32)
+        rel, _ = gateway_vs_prefill((fp32_cfg or cfg).with_(dtype="float32"),
+                                    torch.float32)
     say(f"  held: {rel:.4e} <= {tol} ({'fp32' if in_fp32 else 'bf16'})")
     if not math.isfinite(rel) or rel > tol:
         fail("the serving path disagrees with the prefill path")
@@ -776,17 +800,37 @@ def phase_train(c, tag: str, arch: str, per_step: dict,
     return train_launches
 
 
-def phase_parity(c, tag: str, arch: str, want_step: dict, tol: dict):
+@contextlib.contextmanager
+def recording_routes(layers, out: list):
+    """While open, every MoE group's dispatch appends (top_e, kept-pair
+    mask) to ``out``, on the host."""
+    dispatch = layers._group_dispatch
+
+    def recorded(xg, eid, w, n_experts, cap):
+        buf, meta = dispatch(xg, eid, w, n_experts, cap)
+        out.append((eid.cpu(), meta[3].cpu()))
+        return buf, meta
+    layers._group_dispatch = recorded
+    try:
+        yield out
+    finally:
+        layers._group_dispatch = dispatch
+
+
+def phase_parity(c, tag: str, arch: str, want_step: dict, tol: dict,
+                 dtype: str = "bfloat16"):
     """One `make_train_step` of `arch` cut to 2 layers at full width, on
     the card (kernels) and on the CPU (plain versions), from one set of
     weights and one batch: loss, gradient norm and every gradient leaf
-    within `tol`."""
+    within `tol`. For an MoE config also the forward's routing (every
+    group's top_e and kept-pair mask) equal and its aux loss within 1e-5
+    relative."""
     torch = c.torch
-    pcfg = c.get_config(arch, smoke=False).with_(n_layers=2)
+    pcfg = c.get_config(arch, smoke=False).with_(n_layers=2, dtype=dtype)
     p_seq = 256
     say(f"[{tag}] parity: make_train_step on {pcfg.name} cut to "
-        f"{pcfg.n_layers} layers at full width, B=1 S={p_seq} bf16, on the "
-        "card (kernels) and on the CPU (plain versions)")
+        f"{pcfg.n_layers} layers at full width, B=1 S={p_seq} {dtype}, on "
+        "the card (kernels) and on the CPU (plain versions)")
     cpu_gen = torch.Generator().manual_seed(3)
     cpu_params, _ = c.model_api.init(pcfg, cpu_gen, device="cpu")
     loader = c.ShardedLoader(c.SyntheticTokenSource(pcfg.vocab_size, p_seq,
@@ -799,6 +843,11 @@ def phase_parity(c, tag: str, arch: str, want_step: dict, tol: dict):
         batch = {k_: torch.from_numpy(v_).to(device)
                  for k_, v_ in np_batch.items()}
         t0 = time.monotonic()
+        routes = []
+        if pcfg.moe is not None:
+            with recording_routes(c.layers, routes), torch.no_grad():
+                _, aux = c.model_api.forward(params, pcfg, batch["tokens"])
+            aux = float(aux)
         live = c.tree_map(lambda t: t.detach().requires_grad_(), params)
         c.model_api.loss_fn(live, pcfg, batch).backward()
         grads = {p_: t.grad.float().cpu() for p_, t in c.flatten(live)}
@@ -816,6 +865,8 @@ def phase_parity(c, tag: str, arch: str, want_step: dict, tol: dict):
         results[where] = dict(loss=float(metrics["loss"]),
                               grad_norm=float(metrics["grad_norm"]),
                               grads=grads, seconds=time.monotonic() - t0,
+                              routes=routes,
+                              aux=aux if pcfg.moe is not None else None,
                               unchanged=[p_ for p_ in start
                                          if start[p_] == changed[p_]])
         del params, state, batch, train_step, opt
@@ -844,6 +895,20 @@ def phase_parity(c, tag: str, arch: str, want_step: dict, tol: dict):
     if (rel["loss"] > tol["loss"] or rel["grad_norm"] > tol["grad_norm"]
             or not worst[1] <= tol["grad_leaf"]):
         fail("the card's train step disagrees with the plain path")
+    if pcfg.moe is None:
+        return
+    same = len(gpu["routes"]) == len(cpu["routes"]) and all(
+        torch.equal(ge, ce) and torch.equal(gk, ck)
+        for (ge, gk), (ce, ck) in zip(gpu["routes"], cpu["routes"]))
+    aux_rel = abs(gpu["aux"] - cpu["aux"]) / abs(cpu["aux"])
+    kept = [int(k.sum()) for _, k in cpu["routes"]]
+    say(f"  routing of {len(cpu['routes'])} MoE group(s): card and CPU "
+        f"{'equal' if same else 'DIFFER'} (kept pairs {kept} of "
+        f"{[k.numel() for _, k in cpu['routes']]}); aux loss card "
+        f"{gpu['aux']:.8f} CPU {cpu['aux']:.8f} (rel {aux_rel:.3e}, tol "
+        "1e-5)")
+    if not same or not aux_rel <= 1e-5:
+        fail("the card's MoE routing or aux loss disagrees with the CPU's")
 
 
 def fleet_raw(results):
@@ -1921,6 +1986,138 @@ def phase_trace_serving(c, tag: str) -> dict:
     return launches
 
 
+# phase 17: the MoE family at full width. decode-vs-prefill in fp32 at the
+# no-drop capacity (capacity_factor = E / k), as the SSM models are held:
+# the two paths then differ only by fp32 sums in another order
+MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
+MOE_SERVE_VS_PREFILL_TOL = 1e-3
+
+
+def no_drop(cfg):
+    """An MoE config at capacity_factor = E / k: a group's capacity is its
+    size, so no (token, expert) pair is dropped."""
+    mo = cfg.moe
+    return cfg.with_(moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_experts / mo.top_k))
+
+
+def moe_parts(c, cfg, params) -> None:
+    """Device ms of a bf16 prefill's parts (B=1, S=SEQ; CUDA events) on
+    the first MoE layer's weights: the expert weights' casts, routing,
+    dispatch, the expert products, the combine and, for MLA,
+    `_chunked_attn`; each a layer and over the layers that run it."""
+    torch, L = c.torch, c.layers
+    silu = torch.nn.functional.silu
+    bf16 = torch.bfloat16
+    mo = cfg.moe
+    E, k, d, f = mo.n_experts, mo.top_k, cfg.d_model, mo.expert_d_ff
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    mp = c.tree_map(lambda t: t[0], params["layers"]["moe"])
+    c.gen.manual_seed(11)
+    x = torch.randn((1, SEQ, d), generator=c.gen, device=c.dev).to(bf16)
+    g = min(mo.group_size, SEQ)
+    cap = L.moe_capacity(cfg, g)
+    xf = x.reshape(SEQ // g, g, d)
+    ws = [mp[n].to(bf16) for n in ("wg", "wi", "wo")]
+    _, top_w, top_e = L.moe_route(mp, cfg, xf)
+    buf, meta = L._group_dispatch(xf[0], top_e[0], top_w[0], E, cap)
+    b3 = buf.view(E, cap, d)
+
+    def experts():
+        return torch.bmm(silu(torch.bmm(b3, ws[0])) * torch.bmm(b3, ws[1]),
+                         ws[2])
+    out_buf = experts().view(E * cap, d)
+    parts = [
+        ("expert weight casts (wg, wi, wo fp32 -> bf16)",
+         lambda: [mp[n].to(bf16) for n in ("wg", "wi", "wo")], n_moe),
+        ("routing (router product, fp32 softmax, sort)",
+         lambda: L.moe_route(mp, cfg, xf), n_moe),
+        ("dispatch (sort, slots, gather into E x cap rows)",
+         lambda: L._group_dispatch(xf[0], top_e[0], top_w[0], E, cap),
+         n_moe),
+        (f"expert products ({E} x ({cap}, {d}) x ({d}, {f}), 3 bmm)",
+         experts, n_moe),
+        ("combine (gather, weight, sum over k)",
+         lambda: L._group_combine(out_buf, meta, g, k, d), n_moe)]
+    if cfg.mla is not None:
+        m, H = cfg.mla, cfg.n_heads
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        q, kf = (torch.randn((1, SEQ, H, qk), generator=c.gen,
+                             device=c.dev).to(bf16) for _ in range(2))
+        v = torch.randn((1, SEQ, H, m.v_head_dim), generator=c.gen,
+                        device=c.dev).to(bf16)
+        parts.append(("_chunked_attn (MLA prefill, fp32 logits)",
+                      lambda: L._chunked_attn(q, kf, v, True, 0),
+                      cfg.n_layers))
+    cast_bytes = 3 * E * d * f * (4 + 2)
+    say(f"  prefill parts at layer 0's shapes (g={g}, cap={cap}; CUDA "
+        "events, median of 10):")
+    for name, fn, n in parts:
+        ms = time_ms(torch, fn, warmup=2, iters=10)
+        say(f"    {ms:9.4f} ms a layer, {ms * n:8.2f} ms over {n} layers  "
+            f"{name}")
+    say(f"    (the casts' bound: {cast_bytes / 1e9:.3f} GB a layer / 3.35 "
+        f"TB/s = {cast_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+
+
+def phase_moe(c, tag: str, arch: str) -> dict:
+    """An MoE arch at full width, weights from seed 0: the bf16 prefill
+    (its launches, drops and parts), `Session.serve` (identical greedy
+    replays, the prefill's RMSNorm count a decode step, gateway vs prefill
+    in fp32 at the no-drop capacity) and the train step at depth 2 in
+    fp32 against the CPU (routing and aux loss too). Returns the prefill
+    and serve launches."""
+    torch = c.torch
+    t_phase = time.monotonic()
+    release(torch)
+    say(f"[{tag}] {arch}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "held on the card from earlier phases")
+    cfg = c.get_config(arch, smoke=False)
+    n_flash = 0 if cfg.mla is not None else cfg.n_layers
+    per_layer = 3 if cfg.mla is not None else 2   # ln1, (kv_norm), ln2
+    n_norms = per_layer * cfg.n_layers + 1
+    session, params, launches = phase_prefill(
+        c, tag, arch, counts(flash_attention_fwd=n_flash,
+                             rmsnorm_fwd=n_norms))
+    total = dict(launches)
+    routes = []
+    c.gen.manual_seed(0)                      # phase_prefill's tokens
+    tokens = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=c.gen,
+                           device=c.dev)
+    with recording_routes(c.layers, routes):
+        c.make_prefill_step(cfg)(params, {"tokens": tokens})
+    kept = sum(int(keep.sum()) for _, keep in routes)
+    pairs = sum(keep.numel() for _, keep in routes)
+    say(f"  the published capacity (factor {cfg.moe.capacity_factor}, cap "
+        f"{c.layers.moe_capacity(cfg, min(cfg.moe.group_size, SEQ))} of "
+        f"{min(cfg.moe.group_size, SEQ)} tokens a group) drops "
+        f"{pairs - kept} of {pairs} (token, expert) pairs in the "
+        f"prefill's {len(routes)} routing group(s) "
+        f"({100 * (pairs - kept) / pairs:.2f}%)")
+    moe_parts(c, cfg, params)
+    n_params = sum(t.numel() for _, t in c.flatten(params))
+    say(f"  a bf16 decode step casts every fp32 weight, as the reference "
+        f"does: {n_params * 4 / 1e9:.1f} GB read, {n_params * 2 / 1e9:.1f} "
+        f"GB written, {n_params * 6 / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 "
+        "TB/s by bytes alone")
+    serve = phase_serve(c, tag, session, params, counts(rmsnorm_fwd=n_norms),
+                        MOE_SERVE_VS_PREFILL_TOL, in_fp32=True,
+                        fp32_cfg=no_drop(cfg))
+    for name in total:
+        total[name] += serve[name]
+    del session, params, tokens, routes
+    release(torch)
+    phase_parity(c, tag, arch, counts(
+        flash_attention_fwd=2 * (n_flash > 0),
+        flash_attention_bwd=2 * (n_flash > 0),
+        rmsnorm_fwd=2 * per_layer + 1, rmsnorm_bwd=2 * per_layer + 1),
+        PARITY_TOL, dtype="float32")
+    release(torch)
+    say(f"  phase {tag.split('/')[0]} ({cfg.name}) in "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return total
+
+
 def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
     """Phase 3's RMSNorm part. The forward and backward kernels held
     against the plain versions at every width the port normalises (the
@@ -1940,6 +2137,9 @@ def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
     # against autograd over the plain forward (the parent's recompute)
     mcfg_ = k.get_config("mamba2-1.3b", smoke=False)
     d_gated = mcfg_.ssm.expand * mcfg_.d_model
+    d_granite = k.get_config("granite-moe-3b-a800m", smoke=False).d_model
+    d_latent = k.get_config("deepseek-v2-lite-16b",
+                            smoke=False).mla.kv_lora_rank
     eps = cfg.norm_eps
     rn_errs, rnb_errs = [], []
     for rows, dim, dtype in [
@@ -1951,7 +2151,14 @@ def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
             (SERVE_SLOTS, d, "bfloat16"), (SERVE_SLOTS * H, hd, "bfloat16"),
             (SERVE_SLOTS * KV, hd, "bfloat16"), (37, 256, "bfloat16"),
             (N_BATCH, d, "float32"), (3, hd, "float32"),
-            (N_BATCH, d_gated, "float32"), (5, 32, "float32")]:
+            (N_BATCH, d_gated, "float32"), (5, 32, "float32"),
+            # phase 17: granite's width and deepseek's kv_norm latent, at
+            # prefill, a decode step and the fp32 depth-2 step (S=256)
+            (SEQ, d_granite, "bfloat16"), (SEQ, d_latent, "bfloat16"),
+            (N_BATCH, d_granite, "bfloat16"), (N_BATCH, d_latent, "bfloat16"),
+            (256, d_granite, "float32"), (256, d_latent, "float32"),
+            (256, d, "float32"), (N_BATCH, d_granite, "float32"),
+            (N_BATCH, d_latent, "float32")]:
         x = randn((rows, dim), getattr(torch, dtype), 4)
         dy = randn((rows, dim), getattr(torch, dtype), 8)
         scale = torch.linspace(0.5, 1.5, dim, device=dev)
@@ -2160,6 +2367,7 @@ def main() -> int:
     from repro_torch.launch import steps as st
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import api as model_api
+    from repro_torch.models import layers as model_layers
     from repro_torch.optim import global_norm
     from repro_torch.serving.engine import GatewayEngine
     from repro_torch.tree import flatten, tree_map
@@ -2175,19 +2383,19 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
-    say(f"[1/16] card: {card}")
+    say(f"[1/17] card: {card}")
     say(f"      torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count={torch.cuda.device_count()}")
 
     # --------------------------------------------------------- 2. build
     t0 = time.monotonic()
     _build.library()
-    say(f"[2/16] build: {_build.library_path().name} in "
+    say(f"[2/17] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
     say_build(_build)
 
     # ------------------------------------------------ 3. kernels vs plain
-    say("[3/16] kernels vs plain versions")
+    say("[3/17] kernels vs plain versions")
     cfg = get_config("qwen3-1.7b", smoke=False)
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     report = {}
@@ -2203,6 +2411,10 @@ def main() -> int:
              "bfloat16"),                                     # live plans
             (2, 192, 320, 4, 2, 64, False, "float32"),       # bidirectional
             (1, 100, 100, 4, 1, 32, True, "float32"),
+            # granite-moe-3b-a800m: 24 query heads over 8 KV heads of 64,
+            # a group of 3 (phase 17's prefill), and ragged in fp32
+            (1, SEQ, SEQ, 24, 8, 64, True, "bfloat16"),
+            (1, 100, 100, 6, 2, 64, True, "float32"),
             # phase 15's train steps at the other (B, S) of SPEED_GRID
             *[(b, s, s, H, KV, hd, True, "bfloat16")
               for b, s in SPEED_GRID if s != SEQ]]:
@@ -2290,6 +2502,11 @@ def main() -> int:
             (LIVE_BATCH, LIVE_SEQ, LIVE_SEQ, H, KV, hd, True, "bfloat16"),
             (2, 192, 320, 4, 2, 64, False, "float32"),       # bidirectional
             (1, 100, 100, 4, 1, 32, True, "float32"),        # MQA
+            # a group of 3: granite's heads, and ragged in fp32 (phase
+            # 17's depth-2 step runs fp32 at S=256)
+            (1, 256, 256, 24, 8, 64, True, "bfloat16"),
+            (1, 100, 100, 6, 2, 64, True, "float32"),
+            (1, 256, 256, 24, 8, 64, True, "float32"),
             # phase 15's train steps at the other (B, S) of SPEED_GRID
             *[(b, s, s, H, KV, hd, True, "bfloat16")
               for b, s in SPEED_GRID if (b, s) != (TRAIN_BATCH, SEQ)]]:
@@ -2572,7 +2789,8 @@ def main() -> int:
     c = types.SimpleNamespace(
         torch=torch, dev=dev, gen=gen, ops=ops, Session=Session,
         get_config=get_config, RunConfig=RunConfig, flatten=flatten,
-        tree_map=tree_map, model_api=model_api, steps=st,
+        tree_map=tree_map, model_api=model_api, layers=model_layers,
+        steps=st,
         make_prefill_step=make_prefill_step, GatewayEngine=GatewayEngine,
         ShardedLoader=ShardedLoader,
         SyntheticTokenSource=SyntheticTokenSource, FleetSim=FleetSim,
@@ -2590,10 +2808,10 @@ def main() -> int:
     L = cfg.n_layers
     n_norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
     session, params, launches = phase_prefill(
-        c, "4/16", "qwen3-1.7b",
+        c, "4/17", "qwen3-1.7b",
         counts(flash_attention_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "5/16", session, params,
+    add(phase_serve(c, "5/17", session, params,
                     counts(rmsnorm_fwd=n_norms), SERVE_VS_PREFILL_TOL))
     del session, params
     release(torch)
@@ -2604,16 +2822,16 @@ def main() -> int:
         flash_attention_fwd=L, flash_attention_bwd=L, rmsnorm_fwd=n_norms,
         rmsnorm_bwd=n_norms)}
     add(phase_train(
-        c, "6/16", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
+        c, "6/17", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
         14.0 * hd * pairs * H * TRAIN_BATCH * L,
         "6 N per token plus the attention products"))
-    phase_parity(c, "7/16", "qwen3-1.7b",
+    phase_parity(c, "7/17", "qwen3-1.7b",
                  counts(flash_attention_fwd=2, flash_attention_bwd=2,
                         rmsnorm_fwd=4 * 2 + 1, rmsnorm_bwd=4 * 2 + 1),
                  PARITY_TOL)
 
     # --------------------------------------- 7b. checkpoint and resume
-    say("[7b/16] resume: SMOKE config, checkpoint_interval=2; 4 steps "
+    say("[7b/17] resume: SMOKE config, checkpoint_interval=2; 4 steps "
         "straight vs 2 steps + a new Session restoring at step 2 for 2 more")
     kw = dict(global_batch=4, seq_len=128)
     with tempfile.TemporaryDirectory() as dir_a, \
@@ -2638,9 +2856,9 @@ def main() -> int:
     L = mcfg.n_layers
     n_norms = 2 * L + 1                       # ln and gated norm, final
     session, params, launches = phase_prefill(
-        c, "8/16", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
+        c, "8/17", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "9/16", session, params,
+    add(phase_serve(c, "9/17", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
@@ -2652,10 +2870,10 @@ def main() -> int:
     train_step_launches["mamba2-1.3b"] = counts(ssd_scan_fwd=L,
                                                 rmsnorm_fwd=n_norms,
                                                 rmsnorm_bwd=n_norms)
-    add(phase_train(c, "10/16", "mamba2-1.3b",
+    add(phase_train(c, "10/17", "mamba2-1.3b",
                     train_step_launches["mamba2-1.3b"], ssd_step,
                     "6 N per token plus the SSD products"))
-    phase_parity(c, "11/16", "mamba2-1.3b",
+    phase_parity(c, "11/17", "mamba2-1.3b",
                  counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1,
                         rmsnorm_bwd=2 * 2 + 1),
                  SSM_PARITY_TOL)
@@ -2666,27 +2884,31 @@ def main() -> int:
     n_shared = L // zcfg.shared_attn_every
     n_norms = 2 * L + 2 * n_shared + 1
     session, params, launches = phase_prefill(
-        c, "12/16", "zamba2-1.2b",
+        c, "12/17", "zamba2-1.2b",
         counts(ssd_scan_fwd=L, flash_attention_fwd=n_shared,
                rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "12/16", session, params,
+    add(phase_serve(c, "12/17", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
     release(torch)
 
     # --------------------------------------- 13. the fleet device engine
-    add(phase_fleet(c, "13/16"))
+    add(phase_fleet(c, "13/17"))
 
     # ------------------------------------- 14. the §VI-B live chaos loop
-    add(phase_live(c, "14/16"))
+    add(phase_live(c, "14/17"))
 
     # ------------------------- 15. the §III-§V model leg, fitted on the card
-    add(phase_models(c, "15/16", train_step_launches))
+    add(phase_models(c, "15/17", train_step_launches))
 
     # ------------------- 16. the recorded trace and the serving fleet
-    add(phase_trace_serving(c, "16/16"))
+    add(phase_trace_serving(c, "16/17"))
+
+    # ------------------ 17. MoE and MLA: granite-moe and deepseek-v2-lite
+    for arch in MOE_ARCHS:
+        add(phase_moe(c, "17/17", arch))
 
     # ------------------------------------------------------------ result
     kernels = []
@@ -2702,7 +2924,7 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
-    say(f"phases 1-16 in {time.monotonic() - t_start:.1f} s")
+    say(f"phases 1-17 in {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     print(json.dumps({"ok": True, "device": {

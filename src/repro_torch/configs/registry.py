@@ -13,12 +13,14 @@ _ARCH_MODULES = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
 }
 
 # ids the reference package serves that the port does not carry yet
 _NOT_PORTED = (
-    "qwen2-vl-2b", "granite-moe-3b-a800m", "deepseek-v2-lite-16b",
-    "hubert-xlarge", "starcoder2-15b", "stablelm-1.6b", "yi-6b",
+    "qwen2-vl-2b", "hubert-xlarge", "starcoder2-15b", "stablelm-1.6b",
+    "yi-6b",
 )
 
 ARCH_IDS = tuple(_ARCH_MODULES)

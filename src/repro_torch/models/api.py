@@ -1,7 +1,8 @@
 """Unified model API of the port: init / loss / prefill / decode — the
-twin of the JAX package's `models/api.py` for the dense, SSM (Mamba2) and
-hybrid (Zamba2) families. MoE, MLA, audio and VLM raise until their slice
-is ported (ROADMAP.md, queue 1).
+twin of the JAX package's `models/api.py` for the dense and MoE
+transformers (GQA or MLA attention), the SSM (Mamba2) and the hybrid
+(Zamba2) families. Audio and VLM raise until their slice is ported
+(ROADMAP.md, queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -20,10 +21,10 @@ def _module(cfg: ModelConfig):
         return ssm_lm
     if cfg.family == "hybrid":
         return hybrid
-    if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"the {cfg.family!r} family (MoE, MLA, audio, VLM) is not "
-            "ported to repro_torch yet (ROADMAP.md, queue 1 items 7 and 9)")
+            f"the {cfg.family!r} family (audio, VLM) is not ported to "
+            "repro_torch yet (ROADMAP.md, queue 1 item 9)")
     return transformer
 
 
@@ -54,8 +55,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Mean next-token cross-entropy plus the aux loss (zero for every
-    family ported so far)."""
+    """Mean next-token cross-entropy plus the aux loss (the MoE layers'
+    load-balancing loss; zero for the other families)."""
     logits, aux = _module(cfg).forward(params, cfg, batch["tokens"])
     return cross_entropy(logits, batch["labels"]) + aux
 

@@ -1,11 +1,14 @@
-"""Decoder-only transformer LM, dense family — the twin of the JAX
-package's `models/transformer.py`.
+"""Decoder-only transformer LM, dense and MoE families (GQA or MLA
+attention; SwiGLU MLP or grouped-capacity MoE, DeepSeek's first layers
+dense) — the twin of the JAX package's `models/transformer.py`.
 
 The layer weights are stacked on a leading ``layers`` axis, as in the
 reference, and a Python loop over that axis takes the place of
-`lax.scan`. Parameters are drawn from an explicit `torch.Generator` with
-the reference's shapes, scales and fp32 storage; the numbers differ from
-`jax.random`'s, so the tests carry weights across with `bridge`.
+`lax.scan`; ``first_k_dense`` layers form a second stack,
+``dense_layers``, run first. Parameters are drawn from an explicit
+`torch.Generator` with the reference's shapes, scales and fp32 storage;
+the numbers differ from `jax.random`'s, so the tests carry weights across
+with `bridge`.
 """
 from __future__ import annotations
 
@@ -22,25 +25,37 @@ from repro_torch.tree import flatten, tree_map
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def init_layers(gen: torch.Generator, cfg: ModelConfig,
-                n: int) -> Dict[str, Any]:
+def init_layers(gen: torch.Generator, cfg: ModelConfig, n: int,
+                dense_ffn: bool = False) -> Dict[str, Any]:
     """``n`` layers' params, each drawn directly with a leading ``layers``
-    axis (the reference builds per-layer trees and stacks them)."""
-    return {
-        "ln1": L.init_rmsnorm(cfg.d_model, gen.device, n),
-        "ln2": L.init_rmsnorm(cfg.d_model, gen.device, n),
-        "attn": L.init_attention(gen, cfg, n),
-        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_variant, n),
+    axis (the reference builds per-layer trees and stacks them). MLA or
+    GQA attention by the config; MoE unless ``dense_ffn`` or the config
+    has none, else an MLP of ``dense_d_ff`` (dense layers) or ``d_ff``."""
+    d = cfg.d_model
+    p: Dict[str, Any] = {
+        "ln1": L.init_rmsnorm(d, gen.device, n),
+        "ln2": L.init_rmsnorm(d, gen.device, n),
+        "attn": (L.init_mla(gen, cfg, n) if cfg.mla is not None
+                 else L.init_attention(gen, cfg, n)),
     }
+    if cfg.moe is not None and not dense_ffn:
+        p["moe"] = L.init_moe(gen, cfg, n)
+    else:
+        d_ff = cfg.dense_d_ff if (dense_ffn and cfg.dense_d_ff) else cfg.d_ff
+        p["mlp"] = L.init_mlp(gen, d, d_ff, cfg.mlp_variant, n)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    n_dense = cfg.first_k_dense
     p: Dict[str, Any] = {
         "embed": L._dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                ("vocab", "embed"), scale=0.02),
         "final_norm": L.init_rmsnorm(cfg.d_model, gen.device),
-        "layers": init_layers(gen, cfg, cfg.n_layers),
+        "layers": init_layers(gen, cfg, cfg.n_layers - n_dense),
     }
+    if n_dense:
+        p["dense_layers"] = init_layers(gen, cfg, n_dense, dense_ffn=True)
     if not cfg.tie_embeddings:
         p["lm_head"] = L._dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                      ("embed", "vocab"))
@@ -59,6 +74,12 @@ def _layers(stacked) -> List[Dict[str, Any]]:
     return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
+def _groups(params) -> List[str]:
+    """The stacked layer groups in the order they run."""
+    return ["dense_layers", "layers"] if "dense_layers" in params \
+        else ["layers"]
+
+
 def check_remat(cfg: ModelConfig) -> None:
     """Activation checkpointing is not ported: every family's forward
     refuses a config that asks for it."""
@@ -70,12 +91,17 @@ def check_remat(cfg: ModelConfig) -> None:
 
 def _layer_apply(lp, cfg: ModelConfig, x, positions, cache=None,
                  cache_index=None):
-    h, new_cache = L.attention(lp["attn"], cfg,
-                               L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
-                               positions, cache, cache_index)
+    """One layer: returns (x, aux loss or None for an MLP layer, cache)."""
+    attn = L.mla_attention if cfg.mla is not None else L.attention
+    h, new_cache = attn(lp["attn"], cfg, L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                        positions, cache, cache_index)
     x = x + h
-    y = L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
-    return x + y, new_cache
+    ffn_in = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if "moe" in lp:
+        y, aux = L.moe(lp["moe"], cfg, ffn_in)
+    else:
+        y, aux = L.mlp(lp["mlp"], ffn_in), None
+    return x + y, aux, new_cache
 
 
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -89,16 +115,19 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None):
     """tokens: (B,S) integer. positions: (B,S). Returns logits (B,S,V)
-    and the aux loss (zero for the dense family)."""
+    and the aux loss summed over the MoE layers (zero without any)."""
     check_remat(cfg)
     x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
     B, S = x.shape[:2]
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    for lp in _layers(params["layers"]):
-        x, _ = _layer_apply(lp, cfg, x, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _head(params, cfg, x), aux
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for group in _groups(params):
+        for lp in _layers(params[group]):
+            x, aux, _ = _layer_apply(lp, cfg, x, positions)
+            if aux is not None:
+                aux_total = aux_total + aux
+    return _head(params, cfg, x), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -106,15 +135,30 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """Per layer group: K and V (B, max_len, KV, hd) for GQA, or MLA's
+    latent ``c_kv`` (B, max_len, kv_lora_rank) and ``k_rope``."""
     if cfg.kv_quant:
         raise NotImplementedError("the int8 KV cache is not ported yet "
                                   "(ROADMAP.md, queue 1 item 6)")
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    axes = ("layers", "batch", "kv_seq", "kv_heads", None)
-    return {"layers": {
-        "k": L.Param(torch.zeros(shape, dtype=dtype, device=device), axes),
-        "v": L.Param(torch.zeros(shape, dtype=dtype, device=device), axes),
-    }}
+
+    def zeros(n, *shape, axes):
+        return L.Param(torch.zeros((n, batch, max_len) + shape, dtype=dtype,
+                                   device=device),
+                       ("layers", "batch", "kv_seq") + axes)
+
+    def group(n):
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"c_kv": zeros(n, m.kv_lora_rank, axes=("qk_lora",)),
+                    "k_rope": zeros(n, m.qk_rope_head_dim, axes=(None,))}
+        kv, hd = cfg.n_kv_heads, cfg.head_dim
+        return {"k": zeros(n, kv, hd, axes=("kv_heads", None)),
+                "v": zeros(n, kv, hd, axes=("kv_heads", None))}
+
+    c = {"layers": group(cfg.n_layers - cfg.first_k_dense)}
+    if cfg.first_k_dense:
+        c["dense_layers"] = group(cfg.first_k_dense)
+    return c
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
@@ -130,6 +174,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                          device=x.device)
     else:
         pos = index.long()[:, None]
-    for lp, lc in zip(_layers(params["layers"]), _layers(cache["layers"])):
-        x, _ = _layer_apply(lp, cfg, x, pos, cache=lc, cache_index=index)
+    for group in _groups(params):
+        for lp, lc in zip(_layers(params[group]), _layers(cache[group])):
+            x, _, _ = _layer_apply(lp, cfg, x, pos, cache=lc,
+                                   cache_index=index)
     return _head(params, cfg, x)[:, 0], cache

@@ -401,7 +401,8 @@ def test_session_simulate_matches_reference(ref_session, engine):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-1.3b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
 def test_n_tensors_counts_the_reference_leaves(arch):
     pytest.importorskip("jax")
     from repro.api import Session

@@ -78,6 +78,6 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 def test_unported_archs_raise_clearly():
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("granite-moe-3b-a800m")
+        get_config("qwen2-vl-2b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")

@@ -137,6 +137,8 @@ def _qkv(q, k, v, fused):
     (2, 160, 4, 2, 32, True, False),      # hd=32, causal
     (2, 192, 8, 2, 128, True, True),      # views of one fused QKV tensor
     (4, 32, 16, 8, 128, True, False),     # the live chaos plans' shape
+    (1, 2048, 24, 8, 64, True, False),    # granite: a group of 3 heads
+    (1, 100, 6, 2, 64, True, False),      # a group of 3, ragged
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, B, S, H, KV, hd, causal,
                                             fused, dtype):
@@ -236,6 +238,56 @@ def test_cuda_tensors_launch_the_kernels(cuda):
                             "rmsnorm_fwd": before["rmsnorm_fwd"] + 2,
                             "rmsnorm_bwd": before["rmsnorm_bwd"] + 1,
                             "ssd_scan_fwd": before["ssd_scan_fwd"] + 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H,KV,dtype,tol,norm_tol", [
+    (256, 24, 8, "bfloat16", 2e-2, 1e-2),   # granite's heads
+    (100, 6, 2, "float32", 3e-4, 3e-4),     # ragged
+])
+def test_flash_bwd_kernel_at_a_group_of_three_on_card(cuda, S, H, KV, dtype,
+                                                      tol, norm_tol):
+    """granite-moe-3b-a800m's 24 query heads over 8 KV heads at hd 64: the
+    backward sums dk and dv over a group of 3, against the plain version
+    with the tolerances of tests/test_torch_train.py's backward cases."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((1, S, H, 64), generator=g, device=cuda).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((1, S, KV, 64), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    for gt, wt in zip(got, want):
+        assert gt.dtype == wt.dtype and gt.shape == wt.shape
+        err = gt.float() - wt.float()
+        assert float(err.abs().max()) <= tol * float(wt.float().abs().max())
+        assert float(err.norm() / wt.float().norm()) <= norm_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_layer_is_deterministic_on_card(cuda, arch):
+    """Two bf16 calls of one full-width MoE layer on 2048 tokens give the
+    same bits: the combine sums each token's k pairs in a fixed order
+    (no atomic scatter-add), so greedy replays can be identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config(arch)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params, _ = L.split_params(L.init_moe(gen, cfg))
+    x = torch.randn((1, 2048, cfg.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        first, aux1 = L.moe(params, cfg, x)
+        again, aux2 = L.moe(params, cfg, x)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(first).all())
+    assert torch.equal(first, again) and torch.equal(aux1, aux2)
 
 
 def _ssd_inputs(device, b, s, h, p, g, n, dtype, seed=6, views=False):

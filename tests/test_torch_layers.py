@@ -138,10 +138,9 @@ def test_unported_paths_raise():
         TL.apply_rope(torch.zeros(1, 2, 1, 8), torch.zeros(3, 1, 2), 1e4,
                       mrope_sections=(2, 1, 1))
     from repro_torch.models import api, transformer
-    for cfg in (TCFG.with_(family="moe"), TCFG.with_(mla=object()),
-                TCFG.with_(family="audio"), TCFG.with_(family="vlm")):
+    for cfg in (TCFG.with_(family="audio"), TCFG.with_(family="vlm")):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, queue 1 items 7 and 9"):
+                           match="ROADMAP.md, queue 1 item 9"):
             api.init(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.init_cache(TCFG.with_(kv_quant=True), 1, 4)
