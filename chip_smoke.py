@@ -14,7 +14,10 @@ Phases, each of which exits non-zero on failure:
             (flash-attention forward: out and lse; flash-attention
             backward: dq, dk, dv, both also at the live plans' S=32, at
             phase 15's train-step (B, S) grid and at granite-moe's group
-            of 3 query heads a KV head; the RMSNorm forward
+            of 3 query heads a KV head; the forward also at head_dim 80
+            (hubert-xlarge: bidirectional and causal in bf16, ragged in
+            fp32, two calls bit for bit, timed beside SDPA and its bound)
+            and at the groups of phase 18 (1, 6, 8, 12); the RMSNorm forward
             and backward kernels at every width the port normalises, the
             backward also against autograd over the plain forward and
             two of its calls bit for bit; the SSD scan
@@ -147,10 +150,32 @@ Phases, each of which exits non-zero on failure:
             at the no-drop capacity (capacity_factor = E / k); the train
             step at 2 layers, full width, fp32, card vs CPU as in 7, with
             every MoE group's routing equal and the aux loss within 1e-5.
+18. dense and VLM, full width, one arch after another, each freed
+            before the next: stablelm-1.6b (MHA 32/32 of 64, partial
+            rotary), qwen2-vl-2b (M-RoPE, 12/2 of 128; its prefill batch
+            has three distinct t/h/w position rows), yi-6b (32/4) and
+            starcoder2-15b (48/4, GELU MLP; 63.8 GB of fp32 weights). Each:
+            the bf16 prefill as in 4 (one flash launch a layer, 2 RMSNorm a
+            layer and the final norm), serve as in 5 (gateway vs prefill in
+            bf16 within 5e-2), and the forward cut to 2 layers at full width
+            in fp32, card vs CPU, logits within 1e-4 of max |logit|.
+19. hubert-xlarge (the audio encoder, head_dim 80), full width: the
+            bf16 encode of 2048 frames (48 flash launches at hd 80, 97
+            RMSNorm), the depth-2 fp32 forward card vs CPU as in 18, and
+            `Session.train` on the card refusing (NotImplementedError
+            naming the ROADMAP) before any flash launch: no backward
+            kernel takes hd 80 yet.
+20. the paper's CIFAR-10 CNN zoo (§III-A): each of the 20 specs 10 SGD
+            steps (lr 0.05) on 128 CIFAR-shaped images after 3 warm-ups,
+            step ms by CUDA events and images/s, with cuDNN's default TF32;
+            the Pearson r of step time against C_m over the zoo, printed;
+            resnet_15 and shake_shake_small card vs CPU: in fp64 the loss
+            and every gradient leaf (1e-12, 1e-8 of its max); in fp32 with
+            TF32 off the loss within 1e-5 of fp64's, the leaves printed.
 
 Then one JSON line per the kernels (launches summed over the prefill,
-serve, train, fleet, live, model-leg, trace/serving and MoE phases, each
-counted from 0), the card line again, and the result line
+serve, train, fleet, live, model-leg, trace/serving, MoE, dense, VLM and
+encoder phases, each counted from 0), the card line again, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the repository beside it, it fails
 before printing any result.
@@ -563,6 +588,12 @@ def counts(**kw):
     return {name: kw.get(name, 0) for name in KERNELS}
 
 
+def norm_count(cfg) -> int:
+    """RMSNorm launches of a decoder or encoder forward: ln1 and ln2 a
+    layer, the q- and k-norm where the config has them, the final norm."""
+    return (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
+
+
 def ssd_flops(b, s, h, p, g, n, chunk) -> float:
     """Products the SSD scan needs: per chunk of L tokens the causal
     halves of C·Bᵀ (once per group) and of scores·x (per head), plus
@@ -570,6 +601,27 @@ def ssd_flops(b, s, h, p, g, n, chunk) -> float:
     L = chunk
     pairs = L * (L + 1)            # 2 x the causal (l, m) pairs
     return b * (s // L) * (g * n * pairs + h * (p * pairs + 4 * L * n * p))
+
+
+def prefill_batch(c, cfg, batch: int = 1, seq: int = 0, seed: int = 0):
+    """A prefill batch on the card from `seed`: `seq` (SEQ by default)
+    tokens, for the VLM
+    with three distinct t/h/w position rows (equal rows would compute
+    plain RoPE), or frame features for the audio encoder."""
+    torch = c.torch
+    seq = seq or SEQ
+    c.gen.manual_seed(seed)
+    if cfg.family == "audio":
+        return {"features": torch.randn((batch, seq, cfg.frontend_dim),
+                                        generator=c.gen, device=c.dev)}
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                   generator=c.gen, device=c.dev)}
+    if cfg.family == "vlm":
+        hw = torch.randint(0, 3 * seq, (2, batch, seq), generator=c.gen,
+                           device=c.dev)
+        t = torch.arange(seq, device=c.dev).expand(1, batch, seq)
+        out["positions"] = torch.cat([t, hw])
+    return out
 
 
 def phase_prefill(c, tag: str, arch: str, want: dict):
@@ -588,15 +640,13 @@ def phase_prefill(c, tag: str, arch: str, want: dict):
     say(f"  init {n_params / 1e9:.3f} B fp32 params on the card in "
         f"{time.monotonic() - t0:.2f}s")
     prefill = c.make_prefill_step(cfg)
-    c.gen.manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=c.gen,
-                           device=c.dev)
-    prefill(params, {"tokens": tokens})            # warm-up (cuBLAS, build)
+    batch = prefill_batch(c, cfg)
+    prefill(params, batch)                         # warm-up (cuBLAS, build)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     c.ops.reset_launches()
     t0 = time.monotonic()
-    logits = prefill(params, {"tokens": tokens})
+    logits = prefill(params, batch)
     torch.cuda.synchronize()
     first_ms = (time.monotonic() - t0) * 1e3
     launches = dict(c.ops.launches)
@@ -611,7 +661,7 @@ def phase_prefill(c, tag: str, arch: str, want: dict):
     walls = []
     for _ in range(3):
         t0 = time.monotonic()
-        prefill(params, {"tokens": tokens})
+        prefill(params, batch)
         torch.cuda.synchronize()
         walls.append((time.monotonic() - t0) * 1e3)
     prefill_ms = statistics.median(walls)
@@ -619,8 +669,7 @@ def phase_prefill(c, tag: str, arch: str, want: dict):
         f"{first_ms:.2f} ms), {SEQ / prefill_ms * 1e3:.0f} tok/s, peak "
         f"memory {peak_gb:.2f} GB")
     say_profile("prefill", prefill_ms, *device_profile(
-        torch, lambda: prefill(params, {"tokens": tokens}), 2),
-        by_category=True)
+        torch, lambda: prefill(params, batch), 2), by_category=True)
     return session, params, launches
 
 
@@ -1199,7 +1248,7 @@ def phase_live(c, tag: str) -> dict:
         live = sc_card["live"]
         n_steps = live["n_steps"]
         L = cfg.n_layers
-        n_norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
+        n_norms = norm_count(cfg)
         want = counts(flash_attention_fwd=L * n_steps,
                       flash_attention_bwd=L * n_steps,
                       rmsnorm_fwd=n_norms * n_steps,
@@ -1937,7 +1986,7 @@ def phase_trace_serving(c, tag: str) -> dict:
         for ev in eng.step():
             emitted[ev["slot"]].append(ev["token"])
     torch.cuda.synchronize()
-    n_norms = 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm else 0)
+    n_norms = norm_count(cfg)
     c.ops.reset_launches()
     round_ms = []
     for _ in range(DECODE_ROUNDS):
@@ -2081,9 +2130,7 @@ def phase_moe(c, tag: str, arch: str) -> dict:
                              rmsnorm_fwd=n_norms))
     total = dict(launches)
     routes = []
-    c.gen.manual_seed(0)                      # phase_prefill's tokens
-    tokens = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=c.gen,
-                           device=c.dev)
+    tokens = prefill_batch(c, cfg)["tokens"]     # phase_prefill's tokens
     with recording_routes(c.layers, routes):
         c.make_prefill_step(cfg)(params, {"tokens": tokens})
     kept = sum(int(keep.sum()) for _, keep in routes)
@@ -2116,6 +2163,241 @@ def phase_moe(c, tag: str, arch: str) -> dict:
     say(f"  phase {tag.split('/')[0]} ({cfg.name}) in "
         f"{time.monotonic() - t_phase:.1f} s")
     return total
+
+
+DENSE_ARCHS = ("stablelm-1.6b", "qwen2-vl-2b", "yi-6b", "starcoder2-15b")
+# fp32 logits of the depth-2 forward, card (kernels) vs CPU (plain
+# versions), as tests/test_torch_model.py holds fp32 prefill: 1e-4 of max
+FORWARD_PARITY_TOL, FORWARD_PARITY_SEQ = 1e-4, 256
+
+
+def phase_forward_parity(c, tag: str, arch: str) -> None:
+    """The forward of `arch` cut to 2 layers at full width in fp32, on the
+    card (kernels: 2 flash and the norms' RMSNorm launches) and on the CPU
+    (plain versions), from one set of weights and one batch (the VLM's
+    with three distinct position rows, the encoder's frame features):
+    logits within FORWARD_PARITY_TOL of max |logit|."""
+    torch = c.torch
+    pcfg = c.get_config(arch, smoke=False).with_(n_layers=2,
+                                                 dtype="float32")
+    want = counts(flash_attention_fwd=2, rmsnorm_fwd=norm_count(pcfg))
+    say(f"[{tag}] forward parity: {pcfg.name} cut to 2 layers at full "
+        f"width, B=1 S={FORWARD_PARITY_SEQ} fp32, card (kernels) vs CPU "
+        "(plain versions)")
+    t0 = time.monotonic()
+    cpu_params, _ = c.model_api.init(pcfg, torch.Generator().manual_seed(3),
+                                     device="cpu")
+    batch = prefill_batch(c, pcfg, seq=FORWARD_PARITY_SEQ, seed=4)
+    prefill = c.make_prefill_step(pcfg)
+    want_logits = prefill(cpu_params, {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.monotonic() - t0
+    params = c.tree_map(lambda t: t.to(c.dev), cpu_params)
+    del cpu_params
+    c.ops.reset_launches()
+    got = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = dict(c.ops.launches)
+    got = got.float().cpu()
+    rel = float((got - want_logits).abs().max() / want_logits.abs().max())
+    say(f"  launches {launches} (predicted {want}); logits card vs CPU: "
+        f"max|diff|/max|CPU| = {rel:.3e} (tol {FORWARD_PARITY_TOL}), argmax "
+        f"agreement {float((got.argmax(-1) == want_logits.argmax(-1)).float().mean()):.4f}; "
+        f"CPU init and forward {cpu_s:.1f} s")
+    if launches != want:
+        fail("the card's forward did not launch the kernels as predicted")
+    if not bool(torch.isfinite(got).all()) or not rel <= FORWARD_PARITY_TOL:
+        fail(f"{arch}: the card's forward disagrees with the CPU's")
+    del params, got, want_logits, batch
+    release(torch)
+
+
+def phase_dense(c, tag: str, arch: str) -> dict:
+    """A dense or VLM arch at full width, weights from seed 0: the bf16
+    prefill (one flash launch a layer, the norms' RMSNorm launches; the
+    VLM's batch with three distinct position rows), `Session.serve` (4
+    slots: identical greedy replays, the RMSNorm count a decode step,
+    gateway vs prefill in bf16) and the depth-2 fp32 forward against the
+    CPU. Returns the prefill and serve launches."""
+    torch = c.torch
+    t_phase = time.monotonic()
+    release(torch)
+    say(f"[{tag}] {arch}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "held on the card from earlier phases")
+    cfg = c.get_config(arch, smoke=False)
+    n_norms = norm_count(cfg)
+    session, params, launches = phase_prefill(
+        c, tag, arch, counts(flash_attention_fwd=cfg.n_layers,
+                             rmsnorm_fwd=n_norms))
+    total = dict(launches)
+    serve = phase_serve(c, tag, session, params, counts(rmsnorm_fwd=n_norms),
+                        SERVE_VS_PREFILL_TOL)
+    for name in total:
+        total[name] += serve[name]
+    del session, params
+    release(torch)
+    phase_forward_parity(c, tag, arch)
+    say(f"  phase {tag.split('/')[0]} ({cfg.name}) in "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return total
+
+
+def phase_encoder(c, tag: str) -> dict:
+    """hubert-xlarge at full width (head_dim 80): the bf16 encode (B=1,
+    S=SEQ frames; 48 flash launches at hd 80, 97 RMSNorm), the depth-2
+    fp32 forward against the CPU, and `Session.train` on the card, which
+    must refuse before any flash launch (no backward kernel takes hd 80
+    yet). Returns the encode's launches."""
+    torch = c.torch
+    t_phase = time.monotonic()
+    release(torch)
+    arch = "hubert-xlarge"
+    cfg = c.get_config(arch, smoke=False)
+    session, params, launches = phase_prefill(
+        c, tag, arch, counts(flash_attention_fwd=cfg.n_layers,
+                             rmsnorm_fwd=norm_count(cfg)))
+    del session, params
+    release(torch)
+    phase_forward_parity(c, tag, arch)
+    tsess = c.Session.from_arch(arch, smoke=False, checkpoint_interval=0)
+    c.ops.reset_launches()
+    with tempfile.TemporaryDirectory() as ckdir:
+        try:
+            tsess.train(1, global_batch=1, seq_len=FORWARD_PARITY_SEQ,
+                        members=1, checkpoint_dir=ckdir)
+        except NotImplementedError as e:
+            refusal = str(e)
+        else:
+            fail("Session.train ran hubert-xlarge on the card, where no "
+                 "backward kernel takes head_dim 80")
+    refused = dict(c.ops.launches)
+    say(f"  Session.train on the card refuses: {refusal!r} (launches "
+        f"before the refusal: {refused})")
+    if "ROADMAP" not in refusal or refused["flash_attention_fwd"]:
+        fail("the hd-80 training refusal is not the ROADMAP's, or came "
+             "after a flash launch")
+    del tsess
+    release(torch)
+    say(f"  phase {tag.split('/')[0]} ({cfg.name}) in "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return launches
+
+
+CNN_BATCH, CNN_WARMUP, CNN_STEPS = 128, 3, 10
+CNN_PARITY, CNN_PARITY_BATCH = ("resnet_15", "shake_shake_small"), 32
+# card vs CPU: in fp64 every gradient leaf within 1e-8 of its max and the
+# loss within 1e-12 relative; in fp32 (TF32 off) the loss within 1e-5 of
+# the fp64 loss, each leaf's distance printed beside the CPU fp32's. A
+# leaf is not held in fp32: a batch-normed conv whose channel variances
+# are small amplifies rounding, and multiplying every conv output by
+# 1 + 1e-7 N(0, 1) in fp64 moves one of shake_shake_small's last-stage
+# leaves by 3.3e-2 of its max at B=32 (on the CPU)
+CNN_TOL = {"loss64": 1e-12, "grad_leaf64": 1e-8, "loss32": 1e-5}
+
+
+def phase_cnn(c, tag: str) -> None:
+    """The paper's CIFAR-10 zoo (§III-A): each of the 20 specs trains
+    CNN_STEPS timed SGD steps (the gradient of `loss_fn`, then SGD at
+    0.05, as benchmarks/fig2_stability.py steps) on CNN_BATCH CIFAR-shaped
+    images after CNN_WARMUP warm-ups, timed by CUDA events; images/s, and
+    the Pearson r of step time against C_m (`flops_per_image`) over the
+    zoo, printed, not gated. Then resnet_15 and shake_shake_small card
+    vs CPU: the loss and every gradient leaf in fp64, the loss in fp32
+    (CNN_TOL)."""
+    torch, cnn, flatten = c.torch, c.cnn, c.flatten
+    t_phase = time.monotonic()
+    release(torch)
+    data = c.CIFARLikeSource(seed=0).batch(0, 0, 1, CNN_BATCH)
+    images = torch.from_numpy(data["images"]).to(c.dev)
+    labels = torch.from_numpy(data["labels"]).to(c.dev)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    # the zoo trains as a user's fp32 convolutions run by default: cuDNN
+    # with TF32
+    torch.backends.cudnn.allow_tf32 = True
+    say(f"[{tag}] CNN zoo: {len(cnn.ZOO)} specs, SGD at 0.05, "
+        f"{CNN_BATCH} CIFAR-shaped images a step, {CNN_WARMUP} warm-ups "
+        f"then {CNN_STEPS} steps by CUDA events (median), fp32 with cuDNN "
+        "TF32 (PyTorch's default)")
+    rows = []
+    for name, spec in cnn.ZOO.items():
+        params = cnn.init_params(torch.Generator(device=c.dev).manual_seed(0),
+                                 spec)
+        leaves = [t.requires_grad_() for _, t in flatten(params)]
+
+        def step():
+            loss = cnn.loss_fn(params, spec, images, labels)
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                torch._foreach_add_(leaves, grads, alpha=-0.05)
+            return loss.detach()
+        ms = time_ms(torch, step, warmup=CNN_WARMUP, iters=CNN_STEPS)
+        loss = float(step())
+        if not math.isfinite(loss):
+            fail(f"{name}: the loss is not finite after "
+                 f"{CNN_WARMUP + CNN_STEPS + 1} steps")
+        c_m = cnn.flops_per_image(spec)
+        rows.append((name, c_m, ms))
+        say(f"  {name:18s} C_m {c_m / 1e9:7.4f} GFLOP/image, "
+            f"{cnn.param_count(spec) / 1e6:7.3f} M params: step "
+            f"{ms:8.3f} ms, {CNN_BATCH / ms * 1e3:9.0f} images/s, "
+            f"{3 * c_m * CNN_BATCH / (ms * 1e-3) / 1e12:6.2f} TFLOP/s "
+            f"(3 C_m a trained image), loss {loss:.4f}")
+        del params, leaves
+    r = statistics.correlation([m for _, m, _ in rows],
+                               [t for _, _, t in rows])
+    say(f"  Pearson r of step time against C_m over the zoo: {r:.4f} "
+        "(the paper's §III-A C_m claim; printed, not gated)")
+
+    # TF32 off for the comparison only: TF32 keeps about three decimal
+    # digits of each fp32 product, the CPU's fp32 oracle keeps all
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = torch.device("cpu")
+    for name in CNN_PARITY:
+        spec = cnn.ZOO[name]
+        cpu_params = cnn.init_params(torch.Generator().manual_seed(1), spec)
+
+        def gradient(dev, dtype):
+            params = c.tree_map(lambda t: t.to(dev, dtype, copy=True)
+                                .requires_grad_(), cpu_params)
+            loss = cnn.loss_fn(params, spec,
+                               images[:CNN_PARITY_BATCH].to(dev, dtype),
+                               labels[:CNN_PARITY_BATCH].to(dev))
+            paths, leaves = zip(*flatten(params))
+            grads = torch.autograd.grad(loss, leaves)
+            return float(loss.detach()), {p_: g.double().cpu()
+                                          for p_, g in zip(paths, grads)}
+        want_loss, want = gradient(cpu, torch.float64)
+
+        def dist(grads):
+            return {p_: float((grads[p_] - g).abs().max())
+                    / float(g.abs().max()) for p_, g in want.items()}
+        loss64, got64 = gradient(c.dev, torch.float64)
+        loss32, got32 = gradient(c.dev, torch.float32)
+        cpu32 = dist(gradient(cpu, torch.float32)[1])
+        d64, d32 = dist(got64), dist(got32)
+        rel64 = abs(loss64 - want_loss) / abs(want_loss)
+        rel32 = abs(loss32 - want_loss) / abs(want_loss)
+        worst64 = max(d64, key=d64.get)
+        worst32 = max(d32, key=d32.get)
+        say(f"  {name} card vs CPU, B={CNN_PARITY_BATCH}, {len(want)} "
+            f"gradient leaves: fp64 loss rel {rel64:.2e} (tol "
+            f"{CNN_TOL['loss64']}), worst leaf {worst64} {d64[worst64]:.2e} "
+            f"of its max (tol {CNN_TOL['grad_leaf64']}); fp32 (TF32 off) "
+            f"against the fp64 oracle: loss rel {rel32:.2e} (tol "
+            f"{CNN_TOL['loss32']}), worst leaf {worst32} {d32[worst32]:.2e} "
+            f"(the CPU fp32's there {cpu32[worst32]:.2e}, its worst "
+            f"{max(cpu32.values()):.2e})")
+        if not (rel64 <= CNN_TOL["loss64"]
+                and d64[worst64] <= CNN_TOL["grad_leaf64"]
+                and rel32 <= CNN_TOL["loss32"]):
+            fail(f"{name}: the card's CNN loss or gradient disagrees with "
+                 "the CPU's")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del images, labels
+    release(torch)
+    say(f"  phase {tag.split('/')[0]} (CNN zoo) in "
+        f"{time.monotonic() - t_phase:.1f} s")
 
 
 def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
@@ -2158,7 +2440,12 @@ def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
             (N_BATCH, d_granite, "bfloat16"), (N_BATCH, d_latent, "bfloat16"),
             (256, d_granite, "float32"), (256, d_latent, "float32"),
             (256, d, "float32"), (N_BATCH, d_granite, "float32"),
-            (N_BATCH, d_latent, "float32")]:
+            (N_BATCH, d_latent, "float32"),
+            # phases 18-19: hubert's 1280 and starcoder2's 6144 at prefill,
+            # a decode step and the fp32 depth-2 forward
+            (SEQ, 1280, "bfloat16"), (SEQ, 6144, "bfloat16"),
+            (N_BATCH, 6144, "bfloat16"), (FORWARD_PARITY_SEQ, 1280, "float32"),
+            (FORWARD_PARITY_SEQ, 6144, "float32")]:
         x = randn((rows, dim), getattr(torch, dtype), 4)
         dy = randn((rows, dim), getattr(torch, dtype), 8)
         scale = torch.linspace(0.5, 1.5, dim, device=dev)
@@ -2357,7 +2644,8 @@ def main() -> int:
 
     from repro_torch.api import Session
     from repro_torch.configs import RunConfig, get_config
-    from repro_torch.data.pipeline import ShardedLoader, SyntheticTokenSource
+    from repro_torch.data.pipeline import (CIFARLikeSource, ShardedLoader,
+                                           SyntheticTokenSource)
     from repro_torch.core.transient.fleet import FleetSim, SimWorker
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import event_select as es
@@ -2367,6 +2655,7 @@ def main() -> int:
     from repro_torch.launch import steps as st
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import api as model_api
+    from repro_torch.models import cnn
     from repro_torch.models import layers as model_layers
     from repro_torch.optim import global_norm
     from repro_torch.serving.engine import GatewayEngine
@@ -2383,19 +2672,19 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
-    say(f"[1/17] card: {card}")
+    say(f"[1/20] card: {card}")
     say(f"      torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count={torch.cuda.device_count()}")
 
     # --------------------------------------------------------- 2. build
     t0 = time.monotonic()
     _build.library()
-    say(f"[2/17] build: {_build.library_path().name} in "
+    say(f"[2/20] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
     say_build(_build)
 
     # ------------------------------------------------ 3. kernels vs plain
-    say("[3/17] kernels vs plain versions")
+    say("[3/20] kernels vs plain versions")
     cfg = get_config("qwen3-1.7b", smoke=False)
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     report = {}
@@ -2415,6 +2704,24 @@ def main() -> int:
             # a group of 3 (phase 17's prefill), and ragged in fp32
             (1, SEQ, SEQ, 24, 8, 64, True, "bfloat16"),
             (1, 100, 100, 6, 2, 64, True, "float32"),
+            # hubert-xlarge (phase 19): 16/16 heads of 80, bidirectional,
+            # causal, ragged in fp32 and its depth-2 fp32 forward
+            (1, SEQ, SEQ, 16, 16, 80, False, "bfloat16"),
+            (1, SEQ, SEQ, 16, 16, 80, True, "bfloat16"),
+            (1, 100, 100, 4, 4, 80, True, "float32"),
+            (1, FORWARD_PARITY_SEQ, FORWARD_PARITY_SEQ, 16, 16, 80, False,
+             "float32"),
+            # phase 18's groups: stablelm's 1 (32/32 of 64), qwen2-vl's 6
+            # (12/2 of 128), yi's 8 (32/4), starcoder2's 12 (48/4), at
+            # prefill in bf16 and at the depth-2 forward in fp32
+            (1, SEQ, SEQ, 32, 32, 64, True, "bfloat16"),
+            (1, SEQ, SEQ, 12, 2, 128, True, "bfloat16"),
+            (1, SEQ, SEQ, 32, 4, 128, True, "bfloat16"),
+            (1, SEQ, SEQ, 48, 4, 128, True, "bfloat16"),
+            *[(1, FORWARD_PARITY_SEQ, FORWARD_PARITY_SEQ, h_, kv_, hd_, True,
+               "float32")
+              for h_, kv_, hd_ in ((32, 32, 64), (12, 2, 128), (32, 4, 128),
+                                   (48, 4, 128))],
             # phase 15's train steps at the other (B, S) of SPEED_GRID
             *[(b, s, s, H, KV, hd, True, "bfloat16")
               for b, s in SPEED_GRID if s != SEQ]]:
@@ -2430,7 +2737,7 @@ def main() -> int:
         fa_errs.append(compare(torch, tag + " out", out, want_out, dtype))
         fa_errs.append(compare(torch, tag + " lse", lse, want_lse, dtype))
 
-    def sdpa_fwd(q, k, v):
+    def sdpa_fwd(q, k, v, causal=True):
         """One SDPA call on the same inputs (the yardstick, not a path)."""
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         h, kv = q.shape[2], k.shape[2]
@@ -2442,7 +2749,7 @@ def main() -> int:
             kt, vt = (x.repeat_interleave(h // kv, dim=1) for x in (kt, vt))
             sdpa_kw = {}
         return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, **sdpa_kw)
+            qt, kt, vt, is_causal=causal, **sdpa_kw)
 
     # the training shape and zamba2-1.2b's shared attention (MHA, hd=64)
     for (B, h, kv, hdim) in [(TRAIN_BATCH, H, KV, hd), (1, 32, 32, 64)]:
@@ -2492,6 +2799,38 @@ def main() -> int:
         f"{ms / lib_ms:.2f}x sdpa")
     say_rate("kernel", ms, flops, bound * 1e3)
     say_rate("sdpa", lib_ms, flops, bound * 1e3)
+
+    # head_dim 80 at hubert-xlarge's encode (B=1, S=SEQ, 16/16 heads,
+    # bidirectional): every key pair of every query, 4 hd flops a pair
+    q, k, v = (randn((1, SEQ, 16, 80), torch.bfloat16, seed)
+               for seed in (1, 2, 3))
+
+    def h80():
+        return fa.flash_attention_fwd(q, k, v, causal=False)
+    first = h80()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, h80())):
+        fail("two hd-80 flash forward calls differ")
+    h80_ms = time_ms(torch, h80)
+    _, ranked = device_profile(torch, h80, 10)
+    h80_dev = kernel_ms(ranked, "flash_fwd_")
+    h80_plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, False),
+                        warmup=2, iters=10)
+    h80_lib = time_ms(torch, sdpa_fwd(q, k, v, causal=False))
+    lib_dev, _ = device_profile(torch, sdpa_fwd(q, k, v, causal=False), 10)
+    flops = 4.0 * 16 * SEQ * SEQ * 80
+    nbytes = 2 * SEQ * 80 * 16 * 4 + 4 * 16 * SEQ
+    bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+    say(f"  flash_attention_fwd @ B=1 S={SEQ} H=16 KV=16 hd=80 "
+        f"bidirectional bf16: two calls bit for bit; kernel {h80_ms:.4f} ms "
+        f"per call ({h80_dev:.4f} ms on the device), plain {h80_plain:.4f} "
+        f"ms, sdpa {h80_lib:.4f} ms per call ({lib_dev:.4f} ms on the "
+        f"device), bound {bound * 1e3:.4f} ms ({flops / 1e9:.2f} GFLOP / "
+        f"989 TFLOP/s); on the device {h80_dev / lib_dev:.2f}x sdpa, "
+        f"{100 * bound * 1e3 / h80_dev:.1f}% of the bound")
+    say_rate("kernel", h80_ms, flops, bound * 1e3)
+    say_rate("sdpa", h80_lib, flops, bound * 1e3)
+    del q, k, v, first
 
     bwd_errs = []
     for (B, Sq, Sk, h, kv, hdim, causal, dtype) in [
@@ -2794,7 +3133,7 @@ def main() -> int:
         make_prefill_step=make_prefill_step, GatewayEngine=GatewayEngine,
         ShardedLoader=ShardedLoader,
         SyntheticTokenSource=SyntheticTokenSource, FleetSim=FleetSim,
-        SimWorker=SimWorker)
+        SimWorker=SimWorker, cnn=cnn, CIFARLikeSource=CIFARLikeSource)
     main_path = counts()
 
     def add(launches):
@@ -2806,12 +3145,12 @@ def main() -> int:
     say(f"  ({time.monotonic() - t_start:.1f} s since the start)")
     # --------------------------------------------- 4-7. qwen3-1.7b, dense
     L = cfg.n_layers
-    n_norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
+    n_norms = norm_count(cfg)
     session, params, launches = phase_prefill(
-        c, "4/17", "qwen3-1.7b",
+        c, "4/20", "qwen3-1.7b",
         counts(flash_attention_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "5/17", session, params,
+    add(phase_serve(c, "5/20", session, params,
                     counts(rmsnorm_fwd=n_norms), SERVE_VS_PREFILL_TOL))
     del session, params
     release(torch)
@@ -2822,16 +3161,16 @@ def main() -> int:
         flash_attention_fwd=L, flash_attention_bwd=L, rmsnorm_fwd=n_norms,
         rmsnorm_bwd=n_norms)}
     add(phase_train(
-        c, "6/17", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
+        c, "6/20", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
         14.0 * hd * pairs * H * TRAIN_BATCH * L,
         "6 N per token plus the attention products"))
-    phase_parity(c, "7/17", "qwen3-1.7b",
+    phase_parity(c, "7/20", "qwen3-1.7b",
                  counts(flash_attention_fwd=2, flash_attention_bwd=2,
                         rmsnorm_fwd=4 * 2 + 1, rmsnorm_bwd=4 * 2 + 1),
                  PARITY_TOL)
 
     # --------------------------------------- 7b. checkpoint and resume
-    say("[7b/17] resume: SMOKE config, checkpoint_interval=2; 4 steps "
+    say("[7b/20] resume: SMOKE config, checkpoint_interval=2; 4 steps "
         "straight vs 2 steps + a new Session restoring at step 2 for 2 more")
     kw = dict(global_batch=4, seq_len=128)
     with tempfile.TemporaryDirectory() as dir_a, \
@@ -2856,9 +3195,9 @@ def main() -> int:
     L = mcfg.n_layers
     n_norms = 2 * L + 1                       # ln and gated norm, final
     session, params, launches = phase_prefill(
-        c, "8/17", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
+        c, "8/20", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "9/17", session, params,
+    add(phase_serve(c, "9/20", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
@@ -2870,10 +3209,10 @@ def main() -> int:
     train_step_launches["mamba2-1.3b"] = counts(ssd_scan_fwd=L,
                                                 rmsnorm_fwd=n_norms,
                                                 rmsnorm_bwd=n_norms)
-    add(phase_train(c, "10/17", "mamba2-1.3b",
+    add(phase_train(c, "10/20", "mamba2-1.3b",
                     train_step_launches["mamba2-1.3b"], ssd_step,
                     "6 N per token plus the SSD products"))
-    phase_parity(c, "11/17", "mamba2-1.3b",
+    phase_parity(c, "11/20", "mamba2-1.3b",
                  counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1,
                         rmsnorm_bwd=2 * 2 + 1),
                  SSM_PARITY_TOL)
@@ -2884,31 +3223,42 @@ def main() -> int:
     n_shared = L // zcfg.shared_attn_every
     n_norms = 2 * L + 2 * n_shared + 1
     session, params, launches = phase_prefill(
-        c, "12/17", "zamba2-1.2b",
+        c, "12/20", "zamba2-1.2b",
         counts(ssd_scan_fwd=L, flash_attention_fwd=n_shared,
                rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "12/17", session, params,
+    add(phase_serve(c, "12/20", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
     release(torch)
 
     # --------------------------------------- 13. the fleet device engine
-    add(phase_fleet(c, "13/17"))
+    add(phase_fleet(c, "13/20"))
 
     # ------------------------------------- 14. the §VI-B live chaos loop
-    add(phase_live(c, "14/17"))
+    add(phase_live(c, "14/20"))
 
     # ------------------------- 15. the §III-§V model leg, fitted on the card
-    add(phase_models(c, "15/17", train_step_launches))
+    add(phase_models(c, "15/20", train_step_launches))
 
     # ------------------- 16. the recorded trace and the serving fleet
-    add(phase_trace_serving(c, "16/17"))
+    add(phase_trace_serving(c, "16/20"))
 
     # ------------------ 17. MoE and MLA: granite-moe and deepseek-v2-lite
     for arch in MOE_ARCHS:
-        add(phase_moe(c, "17/17", arch))
+        add(phase_moe(c, "17/20", arch))
+
+    # ---------- 18. the dense and VLM archs: stablelm, qwen2-vl, yi, starcoder2
+    for arch in DENSE_ARCHS:
+        add(phase_dense(c, "18/20", arch))
+
+    # ------------------------- 19. the audio encoder: hubert-xlarge, hd 80
+    add(phase_encoder(c, "19/20"))
+
+    # ----------------------------------- 20. the paper's CIFAR-10 CNN zoo
+    phase_cnn(c, "20/20")
+    say(f"  ({time.monotonic() - t_start:.1f} s since the start)")
 
     # ------------------------------------------------------------ result
     kernels = []
@@ -2924,7 +3274,7 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
-    say(f"phases 1-17 in {time.monotonic() - t_start:.1f} s")
+    say(f"phases 1-20 in {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     print(json.dumps({"ok": True, "device": {

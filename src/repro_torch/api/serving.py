@@ -45,6 +45,8 @@ def generate(cfg: ModelConfig, params=None, *, batch: int = 4,
     """Prefill a (random or given) prompt via repeated decode, then
     sample `tokens` new tokens. Runs on the card unless
     ``device="cpu"``."""
+    if cfg.family == "audio":
+        raise ValueError("encoder-only arch has no decode path")
     max_len = prompt_len + tokens
     eng = GatewayEngine(cfg, params, slots=batch, max_len=max_len,
                         seed=seed, device=device)

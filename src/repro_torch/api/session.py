@@ -33,7 +33,7 @@ from repro_torch.core.trainer import (MembershipEvent, TrainReport,
 from repro_torch.core.transient.fleet import FleetSim, SimWorker
 from repro_torch.core.transient.replacement import ReplacementModel
 from repro_torch.core.transient.startup import StartupModel
-from repro_torch.data.pipeline import ShardedLoader, SyntheticTokenSource
+from repro_torch.data.pipeline import ShardedLoader, source_for_config
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.compression import compression_ratio
 from repro_torch.dist.elastic import Member
@@ -444,8 +444,8 @@ class Session:
             run = dataclasses.replace(
                 run, checkpoint_dir=os.path.join(run.checkpoint_dir,
                                                  self.arch))
-        loader = ShardedLoader(SyntheticTokenSource(
-            self.cfg.vocab_size, seq_len, seed=run.seed), global_batch)
+        loader = ShardedLoader(source_for_config(self.cfg, seq_len,
+                                                 seed=run.seed), global_batch)
         recal_cfg = (run.recalibration if recalibration is None
                      else recalibration)
         recalibrator = None

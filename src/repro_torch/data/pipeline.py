@@ -1,7 +1,7 @@
 """Deterministic, shard-aware, RESUMABLE data pipeline — a copy of the JAX
-package's `data/pipeline.py` for the token families the port runs (numpy
-only; the port imports nothing of that package). The image and audio
-sources come with the CNN and audio slices (ROADMAP.md, queue 1 item 9).
+package's `data/pipeline.py` (numpy only; the port imports nothing of
+that package): the token, CIFAR-shaped image and audio-frame sources,
+each keyed as the reference keys it.
 
 Transient training needs the data stream to be a pure function of
 (seed, step, shard) so that (a) a restored worker resumes exactly where the
@@ -34,6 +34,56 @@ class SyntheticTokenSource:
                 / (self.vocab_size - 1.0) * (self.vocab_size - 1)).astype(
             np.int32)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+@dataclasses.dataclass
+class CIFARLikeSource:
+    """32x32x3 synthetic image classification stream (the paper's workload
+    shape; CIFAR-10 itself is not bundled offline — training-speed
+    measurements only need the shapes, §III-A)."""
+    n_classes: int = 10
+    seed: int = 0
+
+    def batch(self, step: int, shard: int, n_shards: int,
+              batch_per_shard: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed + 7, step, shard]))
+        x = rng.normal(0.0, 1.0, (batch_per_shard, 32, 32, 3)).astype(
+            np.float32)
+        y = rng.integers(0, self.n_classes, batch_per_shard).astype(np.int32)
+        return {"images": x, "labels": y}
+
+
+@dataclasses.dataclass
+class SyntheticAudioSource:
+    """Frame-embedding stream for encoder (audio) archs: (features, labels)
+    deterministic per (seed, step, shard). Stands in for precomputed
+    HuBERT-style frontend frames."""
+    frontend_dim: int
+    vocab_size: int
+    seq_len: int
+    seed: int = 0
+
+    def batch(self, step: int, shard: int, n_shards: int,
+              batch_per_shard: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed + 13, step, shard]))
+        return {
+            "features": rng.normal(
+                0, 1, (batch_per_shard, self.seq_len, self.frontend_dim)
+            ).astype(np.float32),
+            "labels": rng.integers(
+                0, self.vocab_size, (batch_per_shard, self.seq_len)
+            ).astype(np.int32),
+        }
+
+
+def source_for_config(cfg, seq_len: int, seed: int = 0):
+    """Pick the synthetic source matching a ModelConfig's input modality."""
+    if cfg.family == "audio":
+        return SyntheticAudioSource(cfg.frontend_dim, cfg.vocab_size,
+                                    seq_len, seed=seed)
+    return SyntheticTokenSource(cfg.vocab_size, seq_len, seed=seed)
 
 
 class ShardedLoader:

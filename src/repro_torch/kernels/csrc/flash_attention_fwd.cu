@@ -46,8 +46,18 @@
 // tile in shared memory, 4x4 score and 4x(hd/16) output register tiles per
 // thread, 64-query blocks.
 //
-// Ragged lengths are masked in the kernel. Head dims 32, 64 and 128; out
-// in the input dtype, lse in fp32.
+// Head dim 80 (hubert-xlarge's encoder) is not a whole number of the
+// 64-column, 128B-swizzled boxes the other widths use, so its tiles are
+// five 16-column boxes under the 32B swizzle (hopper.cuh,
+// `tile_box_cols`): each box is one k-step of S = Q K^T, and P V runs as
+// m64n80k16 with V's five boxes one LBO apart; O is 40 fp32 registers a
+// thread. Its bound at hubert's encode (B=1, S=2048, 16/16 heads,
+// bidirectional) is 4 H S^2 hd = 21.47 GFLOP, 0.0217 ms at 989 TFLOP/s.
+// The fp32 path takes it as 5 output columns a thread (78.6 KB of shared
+// memory).
+//
+// Ragged lengths are masked in the kernel. Head dims 32, 64, 80 and 128;
+// out in the input dtype, lse in fp32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -498,6 +508,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
     REPRO_FA_CASE(32)
     REPRO_FA_CASE(64)
+    REPRO_FA_CASE(80)
     REPRO_FA_CASE(128)
     default:
       return cudaErrorInvalidValue;

@@ -8,12 +8,14 @@
 //    the hardware as the 4-D tensor (hd, S, heads, B) with the tensor's own
 //    strides, so strided views (q, k, v cut from one fused projection; the
 //    SSD's x, B and C cut from the conv output) and the GQA head mapping
-//    need no copy. A box is `rows` x 64 columns (x hd below 64); TMA fills
-//    rows past S with zeros, which is how ragged lengths arrive. The
-//    swizzle spans one box row: 128B for 64-column boxes, 64B for 32-column
-//    and 32B for 16-column ones (the SSD's d_state 16): the same mode
-//    goes into the wgmma descriptors below, and every tile's shared-memory
-//    base is 1024-byte aligned so the pattern starts at its row 0.
+//    need no copy. A box is `rows` x `tile_box_cols(hd)` columns: 64 for
+//    a multiple of 64, hd itself below 64, and 16 for any other multiple
+//    of 16 (hubert's hd 80: five boxes); TMA fills rows past S with zeros,
+//    which is how ragged lengths arrive. The swizzle spans one box row:
+//    128B for 64-column boxes, 64B for 32-column and 32B for 16-column ones
+//    (the SSD's d_state 16, hd 80): the same mode goes into the wgmma
+//    descriptors below, and every tile's shared-memory base is 1024-byte
+//    aligned so the pattern starts at its row 0.
 //    `swizzled` gives the byte offset TMA used for a (row, column), for
 //    threads that read a tile themselves.
 //  * `tma_load_4d`: one `cp.async.bulk.tensor` box, completing on an
@@ -31,7 +33,7 @@
 //    SSD's chunk states, with the transpose flag set).
 //  * `wgmma_ss` / `wgmma_rs`: m64nNk16 bf16 -> fp32 products, A from
 //    shared memory (N = 32, 64, 128) or from registers (N = 16, 32, 64,
-//    128), with the B-transpose flag as a template argument; `wgmma_fence`,
+//    80, 128), with the B-transpose flag as a template argument; `wgmma_fence`,
 //    `wgmma_commit`, `wgmma_wait` and `fence_regs`, which keeps the compiler
 //    from moving accumulator reads across the asynchronous product.
 //  * The accumulator of m64nN gives warp w of the warpgroup rows 16w + g and
@@ -85,15 +87,28 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// The columns of one TMA box (and one swizzled shared-memory row) of a
+// bf16 tile hd wide: 64 (a 128-byte row) for a multiple of 64, hd itself
+// below 64, else 16 (a 32-byte row), so that hd is a whole number of
+// boxes whenever it is a multiple of 16 (hd 80: five boxes of 16).
+__host__ __device__ constexpr int tile_box_cols(int hd) {
+  return hd % 64 == 0 ? 64 : hd < 64 ? hd : 16;
+}
+
 // A bf16 (B, S, heads, hd) tensor with element strides (sb, ss, sh) and a
 // contiguous head dim, read or written in boxes of `rows` rows of one
-// (batch, head); hd is 16, 32 or a multiple of 64.
+// (batch, head); hd is 16, 32 or a multiple of 16 from 64 up, any other
+// width an error (a box of 16 or 32 columns that did not tile hd would
+// drop its last columns silently).
 inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int hd,
                                    int S, int heads, int B, long long sb,
                                    long long ss, long long sh, int rows) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const int box_cols = hd < 64 ? hd : 64;
+  const int box_cols = tile_box_cols(hd);
+  if (hd <= 0 || hd % box_cols != 0 ||
+      (box_cols != 16 && box_cols != 32 && box_cols != 64))
+    return cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(heads),
@@ -264,14 +279,18 @@ __device__ __forceinline__ int swizzled(int row, int b) {
 
 // The shared-memory image of a (ROWS, HD) bf16 tile as TMA writes it:
 // HD / 64 boxes of ROWS rows x 128 bytes (one box of ROWS x 2 HD bytes at
-// HD = 16 or 32), each row's 16-byte chunks swizzled as `swizzled` says.
+// HD = 16 or 32; HD / 16 boxes of ROWS x 32 bytes at HD = 80), each row's
+// 16-byte chunks swizzled as `swizzled` says.
 template <int HD, int ROWS>
 struct Tile {
-  static constexpr int kBoxCols = HD < 64 ? HD : 64;
+  static constexpr int kBoxCols = tile_box_cols(HD);
   static constexpr int kRowBytes = kBoxCols * 2;  // = the swizzle width
   static constexpr int kBoxes = HD / kBoxCols;
   static constexpr int kBoxBytes = ROWS * kRowBytes;
   static constexpr int kBytes = kBoxes * kBoxBytes;
+  static_assert(HD % kBoxCols == 0, "a tile must be whole boxes");
+  static_assert(kRowBytes == 32 || kRowBytes == 64 || kRowBytes == 128,
+                "a box row must be one swizzle width: 32, 64 or 128 bytes");
   static_assert(kBoxBytes % 1024 == 0, "boxes must keep 1024-byte alignment");
 
   // Issue the tile's boxes at (row r0, head, batch) on `bar`.
@@ -306,8 +325,9 @@ struct Tile {
   }
 
   // MN-major B operand (the rows are the depth, the head dim is N): rows
-  // 16 kk .. 16 kk + 15. LBO steps from one box of 64 columns to the next,
-  // SBO from 8 rows to the next 8.
+  // 16 kk .. 16 kk + 15. LBO steps from one box to the next along N (64
+  // columns under the 128B swizzle, 16 under the 32B one), SBO from 8
+  // rows to the next 8.
   static __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int kk) {
     return make_desc(base + kk * 16 * kRowBytes, kBoxBytes, 8 * kRowBytes,
                      kRowBytes);
@@ -466,6 +486,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+}
+
+// m64n80k16, A from registers, B from shared memory (hd 80's O += P V)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
         "n"(TB));
 }

@@ -23,9 +23,10 @@
 // written once. The width is a template parameter: TPR threads share a
 // row and each holds VPT vectors of it (kCols = 16 columns at the exact
 // widths d = 128, 2048 and 4096: the qk-norm, the residual norms and
-// Mamba2's gated norm; any other width up to 1024 vectors takes a masked
-// instance), so the loops unroll and nothing spills at the port's widths
-// (only a bf16 row wider than 4096 spills in the backward). A 128-wide
+// Mamba2's gated norm; any other width up to 2048 vectors takes a masked
+// instance, the widest 8 vectors a thread for starcoder2-15b's 6144 in
+// fp32), so the loops unroll and nothing spills at the port's bf16 widths
+// up to 4096 (a wider row may spill in the backward). A 128-wide
 // row goes to 8 lanes, so a warp normalises four qk-norm rows; a wide row
 // spans warps, which add their sums through shared memory behind a named
 // barrier of the row's own threads. The blocks walk the rows in a
@@ -376,7 +377,7 @@ template <int TPR_, int VPT_, bool FULL_> struct Cfg {
 };
 
 // The instance for a width, in both kernels: d / kCols threads a row at
-// the exact widths, masked ones up to 1024 vectors otherwise. `f` is
+// the exact widths, masked ones up to 2048 vectors otherwise. `f` is
 // called with the Cfg.
 template <typename T, typename F>
 cudaError_t row_config(int d, F&& f) {
@@ -389,6 +390,7 @@ cudaError_t row_config(int d, F&& f) {
   if (nvec <= 256) return f(Cfg<256, 1, false>());
   if (nvec <= 512) return f(Cfg<256, 2, false>());
   if (nvec <= 1024) return f(Cfg<256, 4, false>());
+  if (nvec <= 2048) return f(Cfg<256, 8, false>());
   return cudaErrorInvalidValue;
 }
 
@@ -488,7 +490,7 @@ bool bad_shape(long long rows, int d, int dtype) {
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16. x and y are (rows, d) contiguous and 16-byte
-// aligned, scale is (d,) fp32, 16-byte aligned; d at most 1024 16-byte
+// aligned, scale is (d,) fp32, 16-byte aligned; d at most 2048 16-byte
 // vectors. Returns the cudaError_t of the launch.
 extern "C" int repro_rmsnorm_fwd(const void* x, const void* scale, void* y,
                                  long long rows, int d, float eps, int dtype,

@@ -1,8 +1,9 @@
 """Unified model API of the port: init / loss / prefill / decode — the
-twin of the JAX package's `models/api.py` for the dense and MoE
-transformers (GQA or MLA attention), the SSM (Mamba2) and the hybrid
-(Zamba2) families. Audio and VLM raise until their slice is ported
-(ROADMAP.md, queue 1 item 9).
+twin of the JAX package's `models/api.py` for every family: the dense,
+MoE and VLM transformers (GQA or MLA attention; the VLM's M-RoPE
+positions from ``batch["positions"]``), the SSM (Mamba2), the hybrid
+(Zamba2) and the audio encoder (HuBERT, ``batch["features"]``, no
+decode).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import hybrid, ssm_lm, transformer
+from repro_torch.models import encoder, hybrid, ssm_lm, transformer
 from repro_torch.models import layers as L
 
 
@@ -21,11 +22,9 @@ def _module(cfg: ModelConfig):
         return ssm_lm
     if cfg.family == "hybrid":
         return hybrid
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family (audio, VLM) is not ported to "
-            "repro_torch yet (ROADMAP.md, queue 1 item 9)")
-    return transformer
+    if cfg.family == "audio":
+        return encoder
+    return transformer  # dense | moe | vlm
 
 
 # ---------------------------------------------------------------------------
@@ -53,11 +52,24 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(logz - gold)
 
 
+def _logits_and_aux(params, cfg: ModelConfig,
+                    batch: Dict[str, torch.Tensor]):
+    """The forward on a batch: frame features for audio, tokens and
+    their M-RoPE positions (when given) for the VLM, tokens otherwise."""
+    mod = _module(cfg)
+    if cfg.family == "audio":
+        return mod.forward(params, cfg, batch["features"])
+    if cfg.family == "vlm":
+        return mod.forward(params, cfg, batch["tokens"],
+                           positions=batch.get("positions"))
+    return mod.forward(params, cfg, batch["tokens"])
+
+
 def loss_fn(params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Mean next-token cross-entropy plus the aux loss (the MoE layers'
-    load-balancing loss; zero for the other families)."""
-    logits, aux = _module(cfg).forward(params, cfg, batch["tokens"])
+    """Mean cross-entropy against ``batch["labels"]`` plus the aux loss
+    (the MoE layers' load-balancing loss; zero for the other families)."""
+    logits, aux = _logits_and_aux(params, cfg, batch)
     return cross_entropy(logits, batch["labels"]) + aux
 
 
@@ -68,8 +80,7 @@ def forward(params, cfg: ModelConfig, *args, **kw):
 def prefill(params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Forward returning logits only (inference prefill)."""
-    logits, _ = _module(cfg).forward(params, cfg, batch["tokens"])
-    return logits
+    return _logits_and_aux(params, cfg, batch)[0]
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -77,6 +88,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     """Returns (state_values, state_axes) for the decode carrier (KV
     cache / SSM state / both). It is bf16 by default, whatever the
     model's dtype, as in the reference."""
+    if cfg.family == "audio":
+        raise ValueError("encoder-only arch has no decode state")
     mod = _module(cfg)
     builder = (mod.init_cache if mod is transformer else mod.init_state)
     return L.split_params(builder(cfg, batch, max_len, dtype,
@@ -84,4 +97,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(params, cfg: ModelConfig, state, tokens, index):
+    if cfg.family == "audio":
+        raise ValueError("encoder-only arch has no decode step")
     return _module(cfg).decode_step(params, cfg, state, tokens, index)

@@ -14,8 +14,8 @@ the cache, MLA's prefill attention (`_chunked_attn`: its q/k and v head
 dims differ), the MoE dispatch, expert products and combine, and the
 projections stay plain PyTorch, as the reference left them to XLA.
 
-M-RoPE raises `NotImplementedError` (ROADMAP.md, queue 1 item 9), the
-int8 KV cache `transformer.init_cache`.
+The int8 KV cache raises `NotImplementedError` in
+`transformer.init_cache` (ROADMAP.md, queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -95,7 +95,7 @@ def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings (standard / partial)
+# Rotary position embeddings (standard / partial / M-RoPE)
 # ---------------------------------------------------------------------------
 def rope_freqs(rot_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, rot_dim, 2, dtype=torch.float32,
@@ -106,17 +106,25 @@ def rope_freqs(rot_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                rot_frac: float = 1.0,
                mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
-    """x: (B,S,H,hd). positions: (B,S)."""
-    if mrope_sections:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md, "
-                                  "queue 1 item 9)")
+    """x: (B,S,H,hd). positions: (B,S), or (3,B,S) for M-RoPE, whose
+    section i of the rotary frequencies turns by the t/h/w row i."""
     hd = x.shape[-1]
     rot_dim = int(hd * rot_frac)
     if rot_dim == 0:
         return x
     rot_dim -= rot_dim % 2
     inv = rope_freqs(rot_dim, theta, x.device)             # (rot_dim/2,)
-    angles = positions[..., None].float() * inv            # (B,S,rot_dim/2)
+    if mrope_sections:
+        assert positions.dim() == 3, "M-RoPE needs (3,B,S) positions"
+        assert sum(mrope_sections) == rot_dim // 2, (mrope_sections,
+                                                     rot_dim)
+        parts, off = [], 0
+        for i, n in enumerate(mrope_sections):
+            parts.append(positions[i][..., None].float() * inv[off:off + n])
+            off += n
+        angles = torch.cat(parts, dim=-1)                  # (B,S,rot_dim/2)
+    else:
+        angles = positions[..., None].float() * inv        # (B,S,rot_dim/2)
     cos = torch.cos(angles)[:, :, None, :]                 # (B,S,1,rot_dim/2)
     sin = torch.sin(angles)[:, :, None, :]
     xr, xp = x[..., :rot_dim], x[..., rot_dim:]

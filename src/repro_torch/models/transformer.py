@@ -1,6 +1,7 @@
-"""Decoder-only transformer LM, dense and MoE families (GQA or MLA
-attention; SwiGLU MLP or grouped-capacity MoE, DeepSeek's first layers
-dense) — the twin of the JAX package's `models/transformer.py`.
+"""Decoder-only transformer LM, dense, MoE and VLM families (GQA or MLA
+attention, RoPE partial or M-RoPE; SwiGLU or GELU MLP or grouped-capacity
+MoE, DeepSeek's first layers dense) — the twin of the JAX package's
+`models/transformer.py`.
 
 The layer weights are stacked on a leading ``layers`` axis, as in the
 reference, and a Python loop over that axis takes the place of
@@ -112,15 +113,24 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"].to(dtype)
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None):
-    """tokens: (B,S) integer. positions: (B,S). Returns logits (B,S,V)
-    and the aux loss summed over the MoE layers (zero without any)."""
+def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            positions: Optional[torch.Tensor] = None,
+            input_embeds: Optional[torch.Tensor] = None):
+    """tokens: (B,S) integer, or ``input_embeds`` (B,S,d) for a stubbed
+    frontend (the VLM's patch embeddings). positions: (B,S), or (3,B,S)
+    t/h/w rows for M-RoPE; by default each row is 0..S-1. Returns logits
+    (B,S,V) and the aux loss summed over the MoE layers (zero without
+    any)."""
     check_remat(cfg)
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    if input_embeds is not None:
+        x = input_embeds.to(torch_dtype(cfg.dtype))
+    else:
+        x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
     B, S = x.shape[:2]
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
+        if cfg.mrope_sections:
+            positions = positions.expand(3, B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for group in _groups(params):
         for lp in _layers(params[group]):
@@ -174,6 +184,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                          device=x.device)
     else:
         pos = index.long()[:, None]
+    if cfg.mrope_sections:
+        pos = pos.expand(3, B, 1)
     for group in _groups(params):
         for lp, lc in zip(_layers(params[group]), _layers(cache[group])):
             x, _, _ = _layer_apply(lp, cfg, x, pos, cache=lc,

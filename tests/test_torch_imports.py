@@ -76,8 +76,13 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 
 
 def test_unported_archs_raise_clearly():
-    from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("qwen2-vl-2b")
+    """Every arch id the reference serves resolves in the port, full and
+    SMOKE, in the reference's order; an unknown id raises `KeyError`."""
+    from repro.configs.registry import ARCH_IDS as REF_IDS
+    from repro_torch.configs import ARCH_IDS, get_config
+    assert ARCH_IDS == REF_IDS
+    for arch in REF_IDS:
+        assert get_config(arch).name == arch
+        assert get_config(arch, smoke=True).name == arch
     with pytest.raises(KeyError):
         get_config("no-such-arch")

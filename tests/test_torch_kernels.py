@@ -139,6 +139,13 @@ def _qkv(q, k, v, fused):
     (4, 32, 16, 8, 128, True, False),     # the live chaos plans' shape
     (1, 2048, 24, 8, 64, True, False),    # granite: a group of 3 heads
     (1, 100, 6, 2, 64, True, False),      # a group of 3, ragged
+    (1, 2048, 16, 16, 80, False, False),  # hubert-xlarge's encode, hd 80
+    (1, 2048, 16, 16, 80, True, False),   # hd 80, causal
+    (1, 100, 4, 4, 80, True, False),      # hd 80, ragged
+    (2, 192, 4, 2, 80, False, True),      # hd 80, views of a fused QKV
+    (1, 256, 48, 4, 128, True, False),    # starcoder2-15b: a group of 12
+    (1, 256, 12, 2, 128, True, False),    # qwen2-vl-2b: a group of 6
+    (1, 256, 32, 32, 64, True, False),    # stablelm-1.6b: MHA
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, B, S, H, KV, hd, causal,
                                             fused, dtype):
@@ -155,9 +162,28 @@ def test_flash_kernel_matches_plain_on_card(cuda, B, S, H, KV, hd, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_at_hd80_is_deterministic_on_card(cuda, causal):
+    """Two bf16 forward calls at hubert-xlarge's encode shape give the
+    same bits, and the output keeps every one of the 80 columns (a box
+    that dropped columns 64-79 would leave them unwritten)."""
+    from repro_torch.kernels import flash_attention as fa
+    _, (q, k, v) = _inputs(4, [(1, 2048, 16, 80)] * 3, "bfloat16")
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    first = fa.flash_attention_fwd(q, k, v, causal=causal)
+    again = fa.flash_attention_fwd(q, k, v, causal=causal)
+    want, _ = ref.flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    tail = first[0][..., 64:].float() - want[..., 64:].float()
+    assert float(tail.abs().max()) <= 2e-2 * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,d", [(1, 2048), (37, 2048), (300, 128),
-                                    (64, 4096), (5, 32), (37, 256)])
+                                    (64, 4096), (5, 32), (37, 256),
+                                    (2048, 1280), (64, 6144)])
 def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, d, dtype):
     from repro_torch.kernels import rmsnorm as rn
     tol = _TOL[dtype]
@@ -173,7 +199,8 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,d", [(1, 2048), (37, 2048), (300, 128),
-                                    (64, 4096), (4096, 2048)])
+                                    (64, 4096), (4096, 2048), (2048, 1280),
+                                    (64, 6144)])
 def test_rmsnorm_bwd_kernel_matches_plain_on_card(cuda, rows, d, dtype):
     """dx and dscale against `ref.rmsnorm_bwd_ref`: fp32 3e-4 of max; bf16
     dx 2e-2 of max and 1e-2 in Frobenius norm (one rounding each, after

@@ -134,13 +134,14 @@ def test_mlp_swiglu_and_gelu():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.apply_rope(torch.zeros(1, 2, 1, 8), torch.zeros(3, 1, 2), 1e4,
-                      mrope_sections=(2, 1, 1))
-    from repro_torch.models import api, transformer
-    for cfg in (TCFG.with_(family="audio"), TCFG.with_(family="vlm")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, queue 1 item 9"):
-            api.init(cfg, device="cpu")
+    """What is left unported raises and names the ROADMAP: the int8 KV
+    cache, and a flash-attention forward that would need the backward
+    kernel at head_dim 80 (hubert-xlarge's training) — it raises before
+    it launches, whatever the tensors' device."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.init_cache(TCFG.with_(kv_quant=True), 1, 4)
+    q = torch.zeros(1, 4, 2, 80, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
+        ops._FlashAttention.apply(q, q, q, False)
