@@ -14,10 +14,13 @@ Phases, each of which exits non-zero on failure:
             (flash-attention forward: out and lse; flash-attention
             backward: dq, dk, dv, both also at the live plans' S=32, at
             phase 15's train-step (B, S) grid and at granite-moe's group
-            of 3 query heads a KV head; the forward also at head_dim 80
-            (hubert-xlarge: bidirectional and causal in bf16, ragged in
-            fp32, two calls bit for bit, timed beside SDPA and its bound)
-            and at the groups of phase 18 (1, 6, 8, 12); the RMSNorm forward
+            of 3 query heads a KV head; both at head_dim 80
+            (hubert-xlarge: bidirectional and causal in bf16 at its
+            training shape, on views of a fused QKV, ragged and GQA in
+            fp32, two calls bit for bit, timed beside SDPA and the bound,
+            the backward by stage) and at stablelm's and qwen2-vl's
+            training shapes; the forward also at the groups of phase 18
+            (1, 6, 8, 12); the RMSNorm forward
             and backward kernels at every width the port normalises, the
             backward also against autograd over the plain forward and
             two of its calls bit for bit; the SSD scan
@@ -159,12 +162,17 @@ Phases, each of which exits non-zero on failure:
             layer and the final norm), serve as in 5 (gateway vs prefill in
             bf16 within 5e-2), and the forward cut to 2 layers at full width
             in fp32, card vs CPU, logits within 1e-4 of max |logit|.
+            stablelm and qwen2-vl, which fit AdamW on one card, also train
+            as in 6 (24 / 28 flash and 49 / 57 RMSNorm launches each way a
+            step) and take the depth-2 fp32 train step card vs CPU as in 7
+            (qwen2-vl's batch with three distinct position rows).
 19. hubert-xlarge (the audio encoder, head_dim 80), full width: the
             bf16 encode of 2048 frames (48 flash launches at hd 80, 97
-            RMSNorm), the depth-2 fp32 forward card vs CPU as in 18, and
-            `Session.train` on the card refusing (NotImplementedError
-            naming the ROADMAP) before any flash launch: no backward
-            kernel takes hd 80 yet.
+            RMSNorm), the depth-2 fp32 forward card vs CPU as in 18,
+            `Session.train` on frame features as in 6 (48 flash launches
+            each way at hd 80, bidirectional, and 97 RMSNorm a step; MFU
+            over every key of every query) and the depth-2 fp32 train step
+            card vs CPU as in 7.
 20. the paper's CIFAR-10 CNN zoo (§III-A): each of the 20 specs 10 SGD
             steps (lr 0.05) on 128 CIFAR-shaped images after 3 warm-ups,
             step ms by CUDA events and images/s, with cuDNN's default TF32;
@@ -355,7 +363,7 @@ def host_ms(torch, fn, batches: int = 10, iters: int = 20) -> float:
 
 
 def device_profile(torch, fn, n: int, count=None, host: bool = True,
-                   tries: int = 3):
+                   tries: int = 5):
     """Run ``fn`` n times under torch.profiler. Returns the device time per
     call summed over kernels and copies (ms) and that time by kernel name,
     largest first; a dict given as ``count`` receives the number of
@@ -363,8 +371,10 @@ def device_profile(torch, fn, n: int, count=None, host: bool = True,
     The profiler slows the host, so host wall times are taken without it;
     ``host=False`` leaves the host's ops out of the trace, which a train
     step's tens of thousands of them make slow to read back. A trace that
-    holds no device event at all (the tracer dropped it) is taken again,
-    up to ``tries`` times in all, and then fails."""
+    holds no device event at all (the tracer dropped it; on the H100 it
+    once dropped three traces of one call in a row) is taken again after
+    a second's pause with twice the calls, up to ``tries`` times in all,
+    and then fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
@@ -383,7 +393,10 @@ def device_profile(torch, fn, n: int, count=None, host: bool = True,
                 n_by_name[e.name] = n_by_name.get(e.name, 0) + 1 / n
         if events:
             break
-        say(f"  the profiler saw no device event in {n} call(s); again")
+        say(f"  the profiler saw no device event in {n} call(s); again "
+            f"with {2 * n}")
+        n *= 2
+        time.sleep(1.0)
     else:
         fail(f"the profiler saw no device event in {tries} traces")
     if count is not None:
@@ -521,6 +534,24 @@ def flash_fwd_cost(b, s, h, kv, hd):
     flops = 4.0 * b * h * hd * pairs
     nbytes = 2 * b * s * hd * (2 * h + 2 * kv) + 4 * b * h * s
     return flops, nbytes
+
+
+def flash_bwd_cost(b, s, h, kv, hd, causal):
+    """Products (the backward's five: q.k, dO.v, dS K, dS^T Q and P^T dO
+    over the pairs the mask keeps) and bytes (q, out, dO and dq; k, v, dk
+    and dv in bf16, lse in fp32) of one backward call."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 10.0 * b * h * hd * pairs
+    nbytes = 2 * b * s * hd * (4 * h + 4 * kv) + 4 * b * h * s
+    return flops, nbytes
+
+
+def attn_step_flops(cfg, batch: int, seq: int) -> float:
+    """The attention products of a train step: 14 hd a pair and head (4
+    forward, 10 backward) over the pairs the mask keeps, S(S+1)/2 for a
+    causal config and S^2 for a bidirectional one."""
+    pairs = seq * (seq + 1) // 2 if cfg.causal else seq * seq
+    return 14.0 * cfg.head_dim * pairs * cfg.n_heads * batch * cfg.n_layers
 
 
 def say_rate(name: str, ms: float, flops: float, bound_ms: float) -> None:
@@ -754,11 +785,14 @@ def phase_serve(c, tag: str, session, params, per_step: dict, tol: float,
 def phase_train(c, tag: str, arch: str, per_step: dict,
                 extra_flops: float, what: str):
     """`Session.train` at full width (TRAIN_STEPS steps, B=TRAIN_BATCH,
-    S=SEQ, AdamW): `per_step` launches in each step, finite losses, a
-    first loss near ln(vocab), every parameter changed by step 1; step
-    time, tokens/s, MFU (6 N per token plus `extra_flops` a step), peak
-    memory and the busy share. Returns the launches."""
+    S=SEQ, AdamW, batches from the arch's source: frame features for the
+    encoder): `per_step` launches in each step, finite losses, a first
+    loss near ln(vocab), every parameter changed by step 1; step time,
+    tokens/s, MFU (6 N per token plus `extra_flops` a step), peak memory,
+    the busy share and the profiled step's device time by category.
+    Returns the launches."""
     torch = c.torch
+    t_phase = time.monotonic()
     cfg = c.get_config(arch, smoke=False)
     tokens_per_step = TRAIN_BATCH * SEQ
     step_flops = 6.0 * cfg.param_count() * tokens_per_step + extra_flops
@@ -816,8 +850,8 @@ def phase_train(c, tag: str, arch: str, per_step: dict,
         f"of 989 TFLOP/s, peak memory {peak_gb:.2f} GB, first loss "
         f"{rep.losses[0]:.4f} (ln V = {ln_v:.4f})")
     trainer = tsess.trainer
-    loader = c.ShardedLoader(c.SyntheticTokenSource(cfg.vocab_size, SEQ,
-                                                    seed=1), TRAIN_BATCH)
+    loader = c.ShardedLoader(c.source_for_config(cfg, SEQ, seed=1),
+                             TRAIN_BATCH)
     batch = {k_: torch.from_numpy(v_).to(c.dev)
              for k_, v_ in loader.next_global(1).items()}
     n_ev = {}
@@ -846,6 +880,7 @@ def phase_train(c, tag: str, arch: str, per_step: dict,
         "the step")
     del tsess, trainer, rep, batch, state, zeros
     release(torch)
+    say(f"  train ({cfg.name}) in {time.monotonic() - t_phase:.1f} s")
     return train_launches
 
 
@@ -873,8 +908,11 @@ def phase_parity(c, tag: str, arch: str, want_step: dict, tol: dict,
     weights and one batch: loss, gradient norm and every gradient leaf
     within `tol`. For an MoE config also the forward's routing (every
     group's top_e and kept-pair mask) equal and its aux loss within 1e-5
-    relative."""
+    relative. The batch comes from the arch's source (frame features for
+    the encoder); the VLM's also carries three distinct position rows, as
+    `prefill_batch` draws them."""
     torch = c.torch
+    t_phase = time.monotonic()
     pcfg = c.get_config(arch, smoke=False).with_(n_layers=2, dtype=dtype)
     p_seq = 256
     say(f"[{tag}] parity: make_train_step on {pcfg.name} cut to "
@@ -882,9 +920,11 @@ def phase_parity(c, tag: str, arch: str, want_step: dict, tol: dict,
         "the card (kernels) and on the CPU (plain versions)")
     cpu_gen = torch.Generator().manual_seed(3)
     cpu_params, _ = c.model_api.init(pcfg, cpu_gen, device="cpu")
-    loader = c.ShardedLoader(c.SyntheticTokenSource(pcfg.vocab_size, p_seq,
-                                                    seed=2), 1)
-    np_batch = loader.next_global(1)
+    np_batch = c.ShardedLoader(c.source_for_config(pcfg, p_seq, seed=2),
+                               1).next_global(1)
+    if pcfg.family == "vlm":
+        np_batch["positions"] = prefill_batch(
+            c, pcfg, seq=p_seq, seed=2)["positions"].cpu().numpy()
     results = {}
     for where in ("cuda", "cpu"):
         device = c.dev if where == "cuda" else torch.device("cpu")
@@ -944,6 +984,7 @@ def phase_parity(c, tag: str, arch: str, want_step: dict, tol: dict,
     if (rel["loss"] > tol["loss"] or rel["grad_norm"] > tol["grad_norm"]
             or not worst[1] <= tol["grad_leaf"]):
         fail("the card's train step disagrees with the plain path")
+    say(f"  parity ({pcfg.name}) in {time.monotonic() - t_phase:.1f} s")
     if pcfg.moe is None:
         return
     same = len(gpu["routes"]) == len(cpu["routes"]) and all(
@@ -2166,6 +2207,10 @@ def phase_moe(c, tag: str, arch: str) -> dict:
 
 
 DENSE_ARCHS = ("stablelm-1.6b", "qwen2-vl-2b", "yi-6b", "starcoder2-15b")
+# the archs of phases 18-19 whose weights, gradients and two AdamW moments
+# (16 bytes a parameter: 15.1, 26.3 and 24.7 GB) fit one 80 GB card beside
+# a B=2, S=2048 step; yi-6b (97.0 GB) and starcoder2-15b (255 GB) do not
+TRAIN_ARCHS = ("hubert-xlarge", "stablelm-1.6b", "qwen2-vl-2b")
 # fp32 logits of the depth-2 forward, card (kernels) vs CPU (plain
 # versions), as tests/test_torch_model.py holds fp32 prefill: 1e-4 of max
 FORWARD_PARITY_TOL, FORWARD_PARITY_SEQ = 1e-4, 256
@@ -2211,13 +2256,37 @@ def phase_forward_parity(c, tag: str, arch: str) -> None:
     release(torch)
 
 
+def phase_fit_train(c, tag: str, arch: str) -> dict:
+    """An arch of TRAIN_ARCHS trains at full width as in phase 6 (one flash
+    launch each way a layer, the norms' RMSNorm launches each way) and
+    takes the depth-2 fp32 train step card vs CPU as in phase 7. Returns
+    the train launches."""
+    cfg = c.get_config(arch, smoke=False)
+    n_norms = norm_count(cfg)
+    launches = phase_train(
+        c, tag, arch, counts(flash_attention_fwd=cfg.n_layers,
+                             flash_attention_bwd=cfg.n_layers,
+                             rmsnorm_fwd=n_norms, rmsnorm_bwd=n_norms),
+        attn_step_flops(cfg, TRAIN_BATCH, SEQ),
+        "6 N per token plus the attention products, "
+        + ("causal" if cfg.causal else "every key of every query"))
+    pcfg = cfg.with_(n_layers=2)
+    phase_parity(c, tag, arch,
+                 counts(flash_attention_fwd=2, flash_attention_bwd=2,
+                        rmsnorm_fwd=norm_count(pcfg),
+                        rmsnorm_bwd=norm_count(pcfg)),
+                 PARITY_TOL, dtype="float32")
+    return launches
+
+
 def phase_dense(c, tag: str, arch: str) -> dict:
     """A dense or VLM arch at full width, weights from seed 0: the bf16
     prefill (one flash launch a layer, the norms' RMSNorm launches; the
     VLM's batch with three distinct position rows), `Session.serve` (4
     slots: identical greedy replays, the RMSNorm count a decode step,
-    gateway vs prefill in bf16) and the depth-2 fp32 forward against the
-    CPU. Returns the prefill and serve launches."""
+    gateway vs prefill in bf16), for TRAIN_ARCHS `phase_fit_train`, and
+    the depth-2 fp32 forward against the CPU. Returns the prefill, serve
+    and train launches."""
     torch = c.torch
     t_phase = time.monotonic()
     release(torch)
@@ -2235,6 +2304,10 @@ def phase_dense(c, tag: str, arch: str) -> dict:
         total[name] += serve[name]
     del session, params
     release(torch)
+    if arch in TRAIN_ARCHS:
+        train = phase_fit_train(c, tag, arch)
+        for name in total:
+            total[name] += train[name]
     phase_forward_parity(c, tag, arch)
     say(f"  phase {tag.split('/')[0]} ({cfg.name}) in "
         f"{time.monotonic() - t_phase:.1f} s")
@@ -2244,9 +2317,9 @@ def phase_dense(c, tag: str, arch: str) -> dict:
 def phase_encoder(c, tag: str) -> dict:
     """hubert-xlarge at full width (head_dim 80): the bf16 encode (B=1,
     S=SEQ frames; 48 flash launches at hd 80, 97 RMSNorm), the depth-2
-    fp32 forward against the CPU, and `Session.train` on the card, which
-    must refuse before any flash launch (no backward kernel takes hd 80
-    yet). Returns the encode's launches."""
+    fp32 forward against the CPU, and `phase_fit_train` (frame features,
+    48 flash launches each way at hd 80 and 97 RMSNorm a step). Returns
+    the encode's and the train steps' launches."""
     torch = c.torch
     t_phase = time.monotonic()
     release(torch)
@@ -2258,25 +2331,9 @@ def phase_encoder(c, tag: str) -> dict:
     del session, params
     release(torch)
     phase_forward_parity(c, tag, arch)
-    tsess = c.Session.from_arch(arch, smoke=False, checkpoint_interval=0)
-    c.ops.reset_launches()
-    with tempfile.TemporaryDirectory() as ckdir:
-        try:
-            tsess.train(1, global_batch=1, seq_len=FORWARD_PARITY_SEQ,
-                        members=1, checkpoint_dir=ckdir)
-        except NotImplementedError as e:
-            refusal = str(e)
-        else:
-            fail("Session.train ran hubert-xlarge on the card, where no "
-                 "backward kernel takes head_dim 80")
-    refused = dict(c.ops.launches)
-    say(f"  Session.train on the card refuses: {refusal!r} (launches "
-        f"before the refusal: {refused})")
-    if "ROADMAP" not in refusal or refused["flash_attention_fwd"]:
-        fail("the hd-80 training refusal is not the ROADMAP's, or came "
-             "after a flash launch")
-    del tsess
-    release(torch)
+    train = phase_fit_train(c, tag, arch)
+    for name in launches:
+        launches[name] += train[name]
     say(f"  phase {tag.split('/')[0]} ({cfg.name}) in "
         f"{time.monotonic() - t_phase:.1f} s")
     return launches
@@ -2645,7 +2702,8 @@ def main() -> int:
     from repro_torch.api import Session
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.data.pipeline import (CIFARLikeSource, ShardedLoader,
-                                           SyntheticTokenSource)
+                                           SyntheticTokenSource,
+                                           source_for_config)
     from repro_torch.core.transient.fleet import FleetSim, SimWorker
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import event_select as es
@@ -2832,8 +2890,21 @@ def main() -> int:
     say_rate("sdpa", h80_lib, flops, bound * 1e3)
     del q, k, v, first
 
+    def bwd_inputs(B, Sq, Sk, h, kv, hdim, dtype, fused=False):
+        """q, k, v, dO from fixed seeds; with `fused`, q, k and v are
+        views of one (B, S, h + 2 kv, hd) tensor, as a fused QKV
+        projection gives them."""
+        dt = getattr(torch, dtype)
+        q = randn((B, Sq, h, hdim), dt, 1)
+        k = randn((B, Sk, kv, hdim), dt, 2)
+        v = randn((B, Sk, kv, hdim), dt, 3)
+        if fused:
+            qkv = torch.cat([q, k, v], dim=2)
+            q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+        return q, k, v, randn((B, Sq, h, hdim), dt, 5)
+
     bwd_errs = []
-    for (B, Sq, Sk, h, kv, hdim, causal, dtype) in [
+    bwd_cases = [
             (TRAIN_BATCH, SEQ, SEQ, H, KV, hd, True, "bfloat16"),  # train
             (2, 200, 200, H, KV, hd, True, "bfloat16"),      # ragged GQA
             (1, 129, 129, H, KV, hd, True, "bfloat16"),      # a tile + 1
@@ -2848,18 +2919,32 @@ def main() -> int:
             (1, 256, 256, 24, 8, 64, True, "float32"),
             # phase 15's train steps at the other (B, S) of SPEED_GRID
             *[(b, s, s, H, KV, hd, True, "bfloat16")
-              for b, s in SPEED_GRID if (b, s) != (TRAIN_BATCH, SEQ)]]:
-        dt = getattr(torch, dtype)
-        q = randn((B, Sq, h, hdim), dt, 1)
-        k = randn((B, Sk, kv, hdim), dt, 2)
-        v = randn((B, Sk, kv, hdim), dt, 3)
-        do = randn((B, Sq, h, hdim), dt, 5)
+              for b, s in SPEED_GRID if (b, s) != (TRAIN_BATCH, SEQ)],
+            # hubert-xlarge at hd 80 (phase 19): its training shape,
+            # bidirectional and causal, ragged and GQA in fp32, and its
+            # depth-2 fp32 step
+            (TRAIN_BATCH, SEQ, SEQ, 16, 16, 80, False, "bfloat16"),
+            (TRAIN_BATCH, SEQ, SEQ, 16, 16, 80, True, "bfloat16"),
+            (1, 100, 100, 4, 4, 80, True, "float32"),
+            (1, 100, 100, 4, 2, 80, False, "float32"),
+            (1, 256, 256, 16, 16, 80, False, "float32"),
+            # phase 18's training: stablelm (MHA 32/32 of 64) and qwen2-vl
+            # (12/2 of 128), at the train shape and the depth-2 fp32 step
+            (TRAIN_BATCH, SEQ, SEQ, 32, 32, 64, True, "bfloat16"),
+            (TRAIN_BATCH, SEQ, SEQ, 12, 2, 128, True, "bfloat16"),
+            (1, 256, 256, 32, 32, 64, True, "float32"),
+            (1, 256, 256, 12, 2, 128, True, "float32")]
+    # and hd 80 on views of one fused QKV projection
+    for (B, Sq, Sk, h, kv, hdim, causal, dtype), fused in (
+            [(case, False) for case in bwd_cases]
+            + [((2, 192, 192, 4, 2, 80, False, "bfloat16"), True)]):
+        q, k, v, do = bwd_inputs(B, Sq, Sk, h, kv, hdim, dtype, fused)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
         want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
         tag = f"flash bwd B={B} Sq={Sq} Sk={Sk} H={h} KV={kv} hd={hdim} " \
-              f"causal={causal} {dtype}"
+              f"causal={causal} {dtype}{' (views of a fused QKV)' * fused}"
         for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
             if dtype == "bfloat16":
                 bwd_errs.append(compare_scaled(torch, f"{tag} {name}", g_,
@@ -2871,10 +2956,7 @@ def main() -> int:
         del q, k, v, do, out, lse, got, want
 
     B = TRAIN_BATCH
-    q = randn((B, SEQ, H, hd), torch.bfloat16, 1)
-    k = randn((B, SEQ, KV, hd), torch.bfloat16, 2)
-    v = randn((B, SEQ, KV, hd), torch.bfloat16, 3)
-    do = randn((B, SEQ, H, hd), torch.bfloat16, 5)
+    q, k, v, do = bwd_inputs(B, SEQ, SEQ, H, KV, hd, "bfloat16")
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     ms = time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
                                                       causal=True))
@@ -2887,10 +2969,7 @@ def main() -> int:
     dot = do.transpose(1, 2)
     lib_ms = time_ms(torch, lambda: torch.autograd.grad(
         sdpa_out, (qt, kt, vt), dot, retain_graph=True))
-    pairs = SEQ * (SEQ + 1) // 2
-    flops = 10.0 * hd * pairs * H * B          # the five products
-    nbytes = (2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
-              + 4 * lse.numel())               # q,out,do,dq; k,dk; v,dv; lse
+    flops, nbytes = flash_bwd_cost(B, SEQ, H, KV, hd, True)
     bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
     report["flash_attention_bwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -2919,6 +2998,50 @@ def main() -> int:
         f"{ms / lib_ms:.2f}x sdpa backward")
     say_rate("kernel", ms, flops, bound * 1e3)
     say_rate("sdpa backward", lib_ms, flops, bound * 1e3)
+    del q, k, v, do, out, lse, qt, kt, vt, sdpa_out, dot
+
+    # head_dim 80 at hubert-xlarge's training shape (B=2, S=SEQ, 16/16
+    # heads, bidirectional): two calls bit for bit, then the kernel by
+    # stage beside the plain version, SDPA's backward and the bound
+    q, k, v, do = bwd_inputs(TRAIN_BATCH, SEQ, SEQ, 16, 16, 80, "bfloat16")
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+
+    def h80_bwd():
+        return fa.flash_attention_bwd(q, k, v, out, lse, do, causal=False)
+    first = h80_bwd()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, h80_bwd())):
+        fail("two hd-80 flash backward calls differ")
+    del first
+    h80_ms = time_ms(torch, h80_bwd)
+    _, ranked = device_profile(torch, h80_bwd, 5)
+    stages = [kernel_ms(ranked, f"flash_bwd_{s_}_")
+              for s_ in ("delta", "dq", "dkv")]
+    h80_plain = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, False), warmup=2, iters=10)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=False)
+    dot = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    h80_lib = time_ms(torch, sdpa_bwd)
+    lib_dev, _ = device_profile(torch, sdpa_bwd, 5)
+    flops, nbytes = flash_bwd_cost(TRAIN_BATCH, SEQ, 16, 16, 80, False)
+    bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+    say(f"  flash_attention_bwd @ B={TRAIN_BATCH} S={SEQ} H=16 KV=16 hd=80 "
+        f"bidirectional bf16: two calls bit for bit; kernel {h80_ms:.4f} ms "
+        f"per call ({sum(stages):.4f} ms on the device: delta "
+        f"{stages[0]:.4f} + dq {stages[1]:.4f} + dk/dv {stages[2]:.4f}), "
+        f"plain {h80_plain:.4f} ms, sdpa backward {h80_lib:.4f} ms per call "
+        f"({lib_dev:.4f} ms on the device), bound {bound * 1e3:.4f} ms "
+        f"({flops / 1e9:.2f} GFLOP / 989 TFLOP/s; {nbytes / 1e6:.1f} MB); on "
+        f"the device {sum(stages) / lib_dev:.2f}x sdpa backward, "
+        f"{100 * bound * 1e3 / sum(stages):.1f}% of the bound")
+    say_rate("kernel", h80_ms, flops, bound * 1e3)
+    say_rate("sdpa backward", h80_lib, flops, bound * 1e3)
     del q, k, v, do, out, lse, qt, kt, vt, sdpa_out, dot
 
     rmsnorm_kernels(types.SimpleNamespace(
@@ -3132,7 +3255,8 @@ def main() -> int:
         steps=st,
         make_prefill_step=make_prefill_step, GatewayEngine=GatewayEngine,
         ShardedLoader=ShardedLoader,
-        SyntheticTokenSource=SyntheticTokenSource, FleetSim=FleetSim,
+        SyntheticTokenSource=SyntheticTokenSource,
+        source_for_config=source_for_config, FleetSim=FleetSim,
         SimWorker=SimWorker, cnn=cnn, CIFARLikeSource=CIFARLikeSource)
     main_path = counts()
 
@@ -3154,15 +3278,12 @@ def main() -> int:
                     counts(rmsnorm_fwd=n_norms), SERVE_VS_PREFILL_TOL))
     del session, params
     release(torch)
-    pairs = SEQ * (SEQ + 1) // 2
-    # 14 hd per causal pair and head for the attention products (4
-    # forward, 10 backward)
     train_step_launches = {"qwen3-1.7b": counts(
         flash_attention_fwd=L, flash_attention_bwd=L, rmsnorm_fwd=n_norms,
         rmsnorm_bwd=n_norms)}
     add(phase_train(
         c, "6/20", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
-        14.0 * hd * pairs * H * TRAIN_BATCH * L,
+        attn_step_flops(cfg, TRAIN_BATCH, SEQ),
         "6 N per token plus the attention products"))
     phase_parity(c, "7/20", "qwen3-1.7b",
                  counts(flash_attention_fwd=2, flash_attention_bwd=2,

@@ -63,7 +63,13 @@
 // tolerance rules out bf16 or TF32 products): tiles in padded shared
 // memory, 4x4 score register tiles per thread, 64-row tiles.
 //
-// Ragged lengths are masked in the kernels. Head dims 32, 64 and 128;
+// Head dim 80 (hubert-xlarge) tiles as the forward does: five 16-column
+// TMA boxes under the 32B swizzle (hopper.cuh), the score products over
+// five K-major k-steps, and the gradient products dQ += dS K, dV += P^T dO
+// and dK += dS^T Q as m64n80k16 with A from registers (40 accumulator
+// registers a thread); no product takes an 80-wide A from shared memory.
+//
+// Ragged lengths are masked in the kernels. Head dims 32, 64, 80 and 128;
 // causal needs Sq == Sk.
 
 #include <cuda_runtime.h>
@@ -383,16 +389,25 @@ __device__ __forceinline__ float dot_vec(const __nv_bfloat16* o,
   return acc;
 }
 
+// the largest power of two not above n (n >= 1)
+constexpr int floor_pow2(int n) { return n >= 2 ? 2 * floor_pow2(n / 2) : 1; }
+
 // delta[b, h, s] = sum_d dO[b, s, h, d] * out[b, s, h, d], fp32, in a
-// fixed summation order. A row takes kLanes lanes (16 at hd = 128 in bf16,
-// 32 in fp32), each reading kVec elements a load; a block of 256 threads
+// fixed summation order. A row takes kLanes lanes, each reading kVec
+// elements a load and striding by kLanes loads: the largest power of two
+// not above the row's loads or 32 (16 at hd = 128 in bf16; 8 at hd = 80,
+// whose ten loads lanes 0-1 take two of; 32 in fp32), so a row's lanes are
+// one aligned group of a warp and the xor shuffles stay inside it (ten
+// lanes a row would mix rows and cross warps). A block of 256 threads
 // takes 256 / kLanes rows. It moves the bytes of dO, out and delta once:
 // at the training shape (B=2, S=2048, H=16, hd=128, bf16) 33.8 MB, a
 // bound of 0.0101 ms at 3.35 TB/s.
 template <typename T, int HD>
 struct DeltaShape {
-  static constexpr int kLanes = HD / kVec<T> < 32 ? HD / kVec<T> : 32;
+  static constexpr int kLanes =
+      floor_pow2(HD / kVec<T> < 32 ? HD / kVec<T> : 32);
   static constexpr int kRows = 256 / kLanes;  // rows per block
+  static_assert(HD % kVec<T> == 0, "a row must be whole loads");
 };
 
 template <typename T, int HD>
@@ -931,6 +946,7 @@ cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch_all<BF16, 32>(a, stream);
     case 64: return launch_all<BF16, 64>(a, stream);
+    case 80: return launch_all<BF16, 80>(a, stream);
     case 128: return launch_all<BF16, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -938,7 +954,8 @@ cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. q, dout and out (B,Sq,H,hd), k/v (B,Sk,KV,hd)
+// dtype: 0 = fp32, 1 = bf16; hd 32, 64, 80 or 128 (any other is
+// cudaErrorInvalidValue). q, dout and out (B,Sq,H,hd), k/v (B,Sk,KV,hd)
 // with the given element strides (the head_dim stride must be 1; for bf16,
 // which loads q, k, v and dout through TMA tensor maps and dout and out in
 // 16-byte vectors, their other strides multiples of 8 elements and their

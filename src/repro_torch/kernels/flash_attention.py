@@ -29,10 +29,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head dims the forward kernel is built for, and the backward's: hd 80
-#: (hubert-xlarge) has a forward only (ROADMAP.md, queue 1 item 14)
-FWD_HEAD_DIMS = (32, 64, 80, 128)
-BWD_HEAD_DIMS = (32, 64, 128)
+#: head dims the forward and backward kernels are built for (80 is
+#: hubert-xlarge's)
+HEAD_DIMS = (32, 64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -57,17 +56,7 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Sq={Sq}, Sk={k.shape[1]}")
 
 
-def check_backward_head_dim(hd: int) -> None:
-    """Raise before a forward whose gradient no kernel computes."""
-    if hd not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the flash-attention backward kernel takes head_dim in "
-            f"{BWD_HEAD_DIMS}, not {hd}: training at head_dim {hd} waits for "
-            "its instantiation (ROADMAP.md, queue 1 item 14)")
-
-
-def _check_launch(what: str, head_dims, q: torch.Tensor,
-                  *others: torch.Tensor):
+def _check_launch(what: str, q: torch.Tensor, *others: torch.Tensor):
     """Device, dtype and layout rules of both kernels; raises on what they
     do not take (there is no fallback). Returns the batch, sequence and
     head strides of each tensor, in order, as the C entry points take
@@ -80,8 +69,8 @@ def _check_launch(what: str, head_dims, q: torch.Tensor,
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in others):
         raise TypeError(f"{what} takes fp32 or bf16 tensors of one dtype, "
                         f"got {[str(t.dtype) for t in ts]}")
-    if q.shape[3] not in head_dims:
-        raise ValueError(f"{what} takes head_dim in {head_dims}, not "
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"{what} takes head_dim in {HEAD_DIMS}, not "
                          f"{q.shape[3]}")
     strides = [t.stride() for t in ts]
     if any(st[3] != 1 for st in strides):
@@ -109,7 +98,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on the card. Returns (out, lse)."""
     check_shapes(q, k, v, causal)
-    strides = _check_launch("flash_attention_fwd", FWD_HEAD_DIMS, q, k, v)
+    strides = _check_launch("flash_attention_fwd", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
@@ -129,7 +118,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels (dq, then dk/dv) on the card.
+    """Launch the backward kernels (delta, dq, then dk/dv) on the card, at
+    any head dim of `HEAD_DIMS`.
 
     ``out`` and ``lse`` are the forward's; ``do`` is the gradient of
     ``out``, any strides with a contiguous head_dim. ``delta =
@@ -140,7 +130,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and do {tuple(do.shape)} "
                          f"must have q's shape {tuple(q.shape)}")
-    strides = _check_launch("flash_attention_bwd", BWD_HEAD_DIMS, q, k, v,
+    strides = _check_launch("flash_attention_bwd", q, k, v,
                             do, out)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]

@@ -135,13 +135,19 @@ def test_mlp_swiglu_and_gelu():
 
 def test_unported_paths_raise():
     """What is left unported raises and names the ROADMAP: the int8 KV
-    cache, and a flash-attention forward that would need the backward
-    kernel at head_dim 80 (hubert-xlarge's training) — it raises before
-    it launches, whatever the tensors' device."""
-    from repro_torch.kernels import ops
+    cache."""
     from repro_torch.models import transformer
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.init_cache(TCFG.with_(kv_quant=True), 1, 4)
-    q = torch.zeros(1, 4, 2, 80, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
+
+
+@pytest.mark.parametrize("hd", [80, 128])
+def test_flash_attention_with_a_gradient_reaches_the_launcher(hd):
+    """A forward that needs a gradient at head_dim 80 (hubert-xlarge's
+    training) is no longer refused: `_FlashAttention` goes on to the
+    launcher, whose first check is that the tensors lie on the card, as
+    at any other head dim."""
+    from repro_torch.kernels import ops
+    q = torch.zeros(1, 4, 2, hd, requires_grad=True)
+    with pytest.raises(ValueError, match="CUDA device"):
         ops._FlashAttention.apply(q, q, q, False)

@@ -107,6 +107,8 @@ def _batches(cfg, n, global_batch=B, seq=S, shards=1):
     (1, 128, 4, 4, 64, True),      # MHA
     (2, 128, 4, 2, 32, True),      # GQA
     (1, 128, 4, 2, 64, False),     # bidirectional
+    (1, 128, 4, 4, 80, False),     # hubert-xlarge's head dim, bidirectional
+    (2, 128, 4, 2, 80, True),      # hd 80, GQA, causal
 ])
 def test_flash_attention_bwd_ref_matches_pallas(J, Bq, Sq, H, KV, hd, causal):
     rng = np.random.default_rng(0)
@@ -409,6 +411,17 @@ def _flash_inputs(device, Bq, Sq, Sk, H, KV, hd, dtype, fused=False):
     (2, 192, 192, 8, 2, 128, True, "bfloat16", 2e-2, 1e-2, True),   # fused
     # the live chaos plans' shape: S=32, below one 64-row TMA box
     (4, 32, 32, 16, 8, 128, True, "bfloat16", 2e-2, 1e-2, False),
+    # hubert-xlarge's training shape at hd 80 (five 16-column TMA boxes),
+    # bidirectional and causal; views of a fused QKV; ragged and GQA fp32
+    (2, 2048, 2048, 16, 16, 80, False, "bfloat16", 2e-2, 1e-2, False),
+    (2, 2048, 2048, 16, 16, 80, True, "bfloat16", 2e-2, 1e-2, False),
+    (2, 192, 192, 4, 2, 80, False, "bfloat16", 2e-2, 1e-2, True),
+    (1, 100, 100, 4, 4, 80, True, "float32", 3e-4, 3e-4, False),
+    (1, 100, 100, 4, 2, 80, False, "float32", 3e-4, 3e-4, False),
+    # stablelm-1.6b's (MHA at hd 64) and qwen2-vl-2b's (a group of 6 at
+    # hd 128) training shapes
+    (2, 2048, 2048, 32, 32, 64, True, "bfloat16", 2e-2, 1e-2, False),
+    (2, 2048, 2048, 12, 2, 128, True, "bfloat16", 2e-2, 1e-2, False),
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(cuda, Bq, Sq, Sk, H, KV, hd,
                                                 causal, dtype, tol, norm_tol,
@@ -467,6 +480,24 @@ def test_flash_bwd_kernel_is_deterministic_on_card(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_kernel_at_hd80_is_deterministic_on_card(cuda, dtype,
+                                                           causal):
+    """hd 80 too: two backward calls give bit-equal dq, dk and dv (GQA,
+    ragged). The delta kernel's rows take 8 lanes there, a power of two,
+    so its shuffles stay inside one row and sum in a fixed order."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _flash_inputs(cuda, 2, 520, 520, 8, 2, 80, dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_backward_on_card_reaches_every_parameter(cuda):
     """The kernels' autograd Functions carry the gradient: every parameter
     leaf gets a finite, non-zero gradient, and the backward kernel ran once
@@ -480,6 +511,37 @@ def test_backward_on_card_reaches_every_parameter(cuda):
     tapi.loss_fn(params, cfg, batch).backward()
     torch.cuda.synchronize()
     assert ops.launches["flash_attention_bwd"] == cfg.n_layers
+    for path, p in flatten(params):
+        assert p.grad is not None, path
+        assert bool(torch.isfinite(p.grad).all()), path
+        assert float(p.grad.abs().sum()) > 0.0, path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "stablelm-1.6b",
+                                  "qwen2-vl-2b"])
+def test_full_width_backward_on_card_reaches_every_parameter(cuda, arch):
+    """The three archs that train on one card, cut to 2 layers at full
+    width (hubert's head dim 80, stablelm's MHA and partial rotary,
+    qwen2-vl's group of 6 with three distinct M-RoPE rows): one backward
+    gives every parameter leaf a finite, non-zero gradient, through one
+    flash backward a layer and one RMSNorm backward a norm."""
+    from repro_torch.data.pipeline import source_for_config
+    cfg = torch_config(arch).with_(n_layers=2)
+    params, _ = tapi.init(cfg, device=cuda)
+    params = tree_map(lambda p: p.requires_grad_(), params)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in ShardedLoader(
+        source_for_config(cfg, 256, seed=1), 2).next_global(1).items()}
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(2)
+        t = np.broadcast_to(np.arange(256), (2, 256))
+        batch["positions"] = torch.from_numpy(np.stack(
+            [t, *rng.integers(0, 768, (2, 2, 256))])).to(cuda)
+    ops.reset_launches()
+    tapi.loss_fn(params, cfg, batch).backward()
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_bwd"] == 2
+    assert ops.launches["rmsnorm_bwd"] == 2 * 2 + 1
     for path, p in flatten(params):
         assert p.grad is not None, path
         assert bool(torch.isfinite(p.grad).all()), path
