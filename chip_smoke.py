@@ -19,7 +19,12 @@ Phases, each of which exits non-zero on failure:
             training shape, on views of a fused QKV, ragged and GQA in
             fp32, two calls bit for bit, timed beside SDPA and the bound,
             the backward by stage) and at stablelm's and qwen2-vl's
-            training shapes; the forward also at the groups of phase 18
+            training shapes (the backward at stablelm's also two calls
+            bit for bit and by stage, with the dq and dk/dv kernels'
+            TFLOP/s), the backward at the edges of the dk/dv kernel's
+            64-key blocks (S 64, 127, 191; Sq 192 with Sk 320) at hd 80
+            and 64;
+            the forward also at the groups of phase 18
             (1, 6, 8, 12); the RMSNorm forward
             and backward kernels at every width the port normalises, the
             backward also against autograd over the plain forward and
@@ -504,6 +509,8 @@ def say_build(build) -> None:
             entry = kernel_name(line.split("'")[1] if "'" in line else line)
         elif "spill" in line or "registers" in line:
             say(f"      {entry}: {line.replace('ptxas info    : ', '')}")
+        elif "ptxas" in line and "arning" in line:  # e.g. C7514
+            say(f"      {line}")
     nvcc = pathlib.Path(build.nvcc_path())
     cuobjdump = nvcc.parent / "cuobjdump"
     if not cuobjdump.exists():
@@ -2933,7 +2940,17 @@ def main() -> int:
             (TRAIN_BATCH, SEQ, SEQ, 32, 32, 64, True, "bfloat16"),
             (TRAIN_BATCH, SEQ, SEQ, 12, 2, 128, True, "bfloat16"),
             (1, 256, 256, 32, 32, 64, True, "float32"),
-            (1, 256, 256, 12, 2, 128, True, "float32")]
+            (1, 256, 256, 12, 2, 128, True, "float32"),
+            # the edges of the dk/dv kernel's 64-key blocks and 64-query
+            # stages (hd 80 and 64, GQA): S = 64 (one whole block), 127
+            # and 191 (a ragged last block); Sq 192 with Sk 320,
+            # bidirectional
+            *[(2, s_, s_, 4, 2, hd_, causal_, "bfloat16")
+              for s_, hd_, causal_ in ((64, 80, False), (64, 64, True),
+                                       (127, 80, True), (127, 64, False),
+                                       (191, 80, False), (191, 64, True))],
+            (2, 192, 320, 4, 2, 80, False, "bfloat16"),
+            (2, 192, 320, 4, 2, 64, False, "bfloat16")]
     # and hd 80 on views of one fused QKV projection
     for (B, Sq, Sk, h, kv, hdim, causal, dtype), fused in (
             [(case, False) for case in bwd_cases]
@@ -3000,49 +3017,61 @@ def main() -> int:
     say_rate("sdpa backward", lib_ms, flops, bound * 1e3)
     del q, k, v, do, out, lse, qt, kt, vt, sdpa_out, dot
 
-    # head_dim 80 at hubert-xlarge's training shape (B=2, S=SEQ, 16/16
-    # heads, bidirectional): two calls bit for bit, then the kernel by
-    # stage beside the plain version, SDPA's backward and the bound
-    q, k, v, do = bwd_inputs(TRAIN_BATCH, SEQ, SEQ, 16, 16, 80, "bfloat16")
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+    # the head dims below 128, by stage beside the plain version, SDPA's
+    # backward and the bound, after two calls bit for bit:
+    # hubert-xlarge's training shape at hd 80 (B=2, S=SEQ, 16/16 heads,
+    # bidirectional) and stablelm-1.6b's at hd 64 (32/32 heads, causal)
+    for h, hdim, causal, who in ((16, 80, False, "hubert-xlarge"),
+                                 (32, 64, True, "stablelm-1.6b")):
+        q, k, v, do = bwd_inputs(TRAIN_BATCH, SEQ, SEQ, h, h, hdim,
+                                 "bfloat16")
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
 
-    def h80_bwd():
-        return fa.flash_attention_bwd(q, k, v, out, lse, do, causal=False)
-    first = h80_bwd()
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, h80_bwd())):
-        fail("two hd-80 flash backward calls differ")
-    del first
-    h80_ms = time_ms(torch, h80_bwd)
-    _, ranked = device_profile(torch, h80_bwd, 5)
-    stages = [kernel_ms(ranked, f"flash_bwd_{s_}_")
-              for s_ in ("delta", "dq", "dkv")]
-    h80_plain = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
-        q, k, v, out, lse, do, False), warmup=2, iters=10)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=False)
-    dot = do.transpose(1, 2)
+        def bwd_call():
+            return fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                          causal=causal)
+        first = bwd_call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, bwd_call())):
+            fail(f"two hd-{hdim} flash backward calls differ")
+        del first
+        bwd_ms = time_ms(torch, bwd_call)
+        _, ranked = device_profile(torch, bwd_call, 5)
+        stages = [kernel_ms(ranked, f"flash_bwd_{s_}_")
+                  for s_ in ("delta", "dq", "dkv")]
+        bwd_plain = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, causal), warmup=2, iters=10)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+        dot = do.transpose(1, 2)
 
-    def sdpa_bwd():
-        return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
-                                   retain_graph=True)
-    h80_lib = time_ms(torch, sdpa_bwd)
-    lib_dev, _ = device_profile(torch, sdpa_bwd, 5)
-    flops, nbytes = flash_bwd_cost(TRAIN_BATCH, SEQ, 16, 16, 80, False)
-    bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
-    say(f"  flash_attention_bwd @ B={TRAIN_BATCH} S={SEQ} H=16 KV=16 hd=80 "
-        f"bidirectional bf16: two calls bit for bit; kernel {h80_ms:.4f} ms "
-        f"per call ({sum(stages):.4f} ms on the device: delta "
-        f"{stages[0]:.4f} + dq {stages[1]:.4f} + dk/dv {stages[2]:.4f}), "
-        f"plain {h80_plain:.4f} ms, sdpa backward {h80_lib:.4f} ms per call "
-        f"({lib_dev:.4f} ms on the device), bound {bound * 1e3:.4f} ms "
-        f"({flops / 1e9:.2f} GFLOP / 989 TFLOP/s; {nbytes / 1e6:.1f} MB); on "
-        f"the device {sum(stages) / lib_dev:.2f}x sdpa backward, "
-        f"{100 * bound * 1e3 / sum(stages):.1f}% of the bound")
-    say_rate("kernel", h80_ms, flops, bound * 1e3)
-    say_rate("sdpa backward", h80_lib, flops, bound * 1e3)
-    del q, k, v, do, out, lse, qt, kt, vt, sdpa_out, dot
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        bwd_lib = time_ms(torch, sdpa_bwd)
+        lib_dev, _ = device_profile(torch, sdpa_bwd, 5)
+        flops, nbytes = flash_bwd_cost(TRAIN_BATCH, SEQ, h, h, hdim, causal)
+        bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+        say(f"  flash_attention_bwd @ B={TRAIN_BATCH} S={SEQ} H={h} KV={h} "
+            f"hd={hdim} {'causal' if causal else 'bidirectional'} bf16 "
+            f"({who}): two calls bit for bit; kernel {bwd_ms:.4f} ms per "
+            f"call ({sum(stages):.4f} ms on the device: delta "
+            f"{stages[0]:.4f} + dq {stages[1]:.4f} + dk/dv {stages[2]:.4f}),"
+            f" plain {bwd_plain:.4f} ms, sdpa backward {bwd_lib:.4f} ms per "
+            f"call ({lib_dev:.4f} ms on the device), bound "
+            f"{bound * 1e3:.4f} ms ({flops / 1e9:.2f} GFLOP / 989 TFLOP/s; "
+            f"{nbytes / 1e6:.1f} MB); on the device "
+            f"{sum(stages) / lib_dev:.2f}x sdpa backward, "
+            f"{100 * bound * 1e3 / sum(stages):.1f}% of the bound")
+        # dq runs three of the five products, dk/dv four (the score
+        # products twice between them)
+        say(f"    on the device: dq {0.6 * flops / stages[1] / 1e9:.1f} "
+            f"TFLOP/s, dk/dv {0.8 * flops / stages[2] / 1e9:.1f} TFLOP/s")
+        say_rate("kernel", bwd_ms, flops, bound * 1e3)
+        say_rate("sdpa backward", bwd_lib, flops, bound * 1e3)
+        del q, k, v, do, out, lse, qt, kt, vt, sdpa_out, dot
 
     rmsnorm_kernels(types.SimpleNamespace(
         torch=torch, F=F, rn=rn, ref=ref, ops=ops, get_config=get_config,

@@ -422,6 +422,14 @@ def _flash_inputs(device, Bq, Sq, Sk, H, KV, hd, dtype, fused=False):
     # hd 128) training shapes
     (2, 2048, 2048, 32, 32, 64, True, "bfloat16", 2e-2, 1e-2, False),
     (2, 2048, 2048, 12, 2, 128, True, "bfloat16", 2e-2, 1e-2, False),
+    # the edges of the dk/dv kernel's 64-key blocks and 64-query stages at
+    # hd 80 and 64 (GQA): S = 64 (one whole block), 127 and 191 (a ragged
+    # last block), causal and bidirectional; Sq 192 with Sk 320,
+    # bidirectional
+    *[(2, s, s, 4, 2, hd_, causal_, "bfloat16", 2e-2, 1e-2, False)
+      for s in (64, 127, 191) for hd_ in (80, 64) for causal_ in (True, False)],
+    *[(2, 192, 320, 4, 2, hd_, False, "bfloat16", 2e-2, 1e-2, False)
+      for hd_ in (80, 64)],
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(cuda, Bq, Sq, Sk, H, KV, hd,
                                                 causal, dtype, tol, norm_tol,
@@ -465,12 +473,13 @@ def test_flash_bwd_kernel_single_token_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_flash_bwd_kernel_is_deterministic_on_card(cuda, dtype):
+@pytest.mark.parametrize("dtype,hd", [("bfloat16", 128), ("float32", 128),
+                                      ("bfloat16", 64)])
+def test_flash_bwd_kernel_is_deterministic_on_card(cuda, dtype, hd):
     """No atomics: two backward calls on the same inputs give bit-equal
     dq, dk and dv (GQA, so dk and dv are sums over a group of heads)."""
     from repro_torch.kernels import flash_attention as fa
-    q, k, v, do = _flash_inputs(cuda, 2, 520, 520, 8, 2, 128, dtype)
+    q, k, v, do = _flash_inputs(cuda, 2, 520, 520, 8, 2, hd, dtype)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     first = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
     second = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
