@@ -23,7 +23,12 @@ Phases, each of which exits non-zero on failure:
             bit for bit and by stage, with the dq and dk/dv kernels'
             TFLOP/s), the backward at the edges of the dk/dv kernel's
             64-key blocks (S 64, 127, 191; Sq 192 with Sk 320) at hd 80
-            and 64;
+            and 64, the forward at the edges of its hd <= 80 schedule's
+            64-key units and 128-key stages (S 64, 127, 129, 191, 255,
+            causal and bidirectional; Sq 192 with Sk 320; a group of 3)
+            in bf16 and fp32 and, two calls bit for bit, on the device
+            beside SDPA at hubert-xlarge's encode (hd 80) and
+            stablelm-1.6b's training shape (hd 64, causal);
             the forward also at the groups of phase 18
             (1, 6, 8, 12); the RMSNorm forward
             and backward kernels at every width the port normalises, the
@@ -509,7 +514,8 @@ def say_build(build) -> None:
             entry = kernel_name(line.split("'")[1] if "'" in line else line)
         elif "spill" in line or "registers" in line:
             say(f"      {entry}: {line.replace('ptxas info    : ', '')}")
-        elif "ptxas" in line and "arning" in line:  # e.g. C7514
+        elif "ptxas" in line and ("arning" in line
+                                  or "Performance" in line):  # C75xx
             say(f"      {line}")
     nvcc = pathlib.Path(build.nvcc_path())
     cuobjdump = nvcc.parent / "cuobjdump"
@@ -534,10 +540,10 @@ def say_build(build) -> None:
         say(f"      SASS {kernel_name(func)}: {hgmma} HGMMA, {hmma} HMMA")
 
 
-def flash_fwd_cost(b, s, h, kv, hd):
-    """Products (QK^T and PV over the causal pairs) and bytes (q, k, v
-    and out in bf16, lse in fp32) of one causal forward call."""
-    pairs = s * (s + 1) // 2
+def flash_fwd_cost(b, s, h, kv, hd, causal):
+    """Products (QK^T and PV over the pairs the mask keeps) and bytes
+    (q, k, v and out in bf16, lse in fp32) of one forward call."""
+    pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4.0 * b * h * hd * pairs
     nbytes = 2 * b * s * hd * (2 * h + 2 * kv) + 4 * b * h * s
     return flops, nbytes
@@ -2773,6 +2779,10 @@ def main() -> int:
             # causal, ragged in fp32 and its depth-2 fp32 forward
             (1, SEQ, SEQ, 16, 16, 80, False, "bfloat16"),
             (1, SEQ, SEQ, 16, 16, 80, True, "bfloat16"),
+            # the training shapes at hd <= 80, stablelm's and hubert's:
+            # persistent blocks walking several tiles of both batches
+            (TRAIN_BATCH, SEQ, SEQ, 32, 32, 64, True, "bfloat16"),
+            (TRAIN_BATCH, SEQ, SEQ, 16, 16, 80, False, "bfloat16"),
             (1, 100, 100, 4, 4, 80, True, "float32"),
             (1, FORWARD_PARITY_SEQ, FORWARD_PARITY_SEQ, 16, 16, 80, False,
              "float32"),
@@ -2789,7 +2799,17 @@ def main() -> int:
                                    (48, 4, 128))],
             # phase 15's train steps at the other (B, S) of SPEED_GRID
             *[(b, s, s, H, KV, hd, True, "bfloat16")
-              for b, s in SPEED_GRID if s != SEQ]]:
+              for b, s in SPEED_GRID if s != SEQ],
+            # the edges of the hd <= 80 schedule's 64-key units and
+            # 128-key stages (hd 80 and 64): one unit, ragged last units
+            # and stages, a tile + 1; Sq 192 with Sk 320; a group of 3
+            *[(2, s_, s_, 4, 2, hd_, causal_, dtype_)
+              for s_ in (64, 127, 129, 191, 255) for hd_ in (80, 64)
+              for causal_ in (True, False)
+              for dtype_ in ("bfloat16", "float32")],
+            *[(2, 192, 320, 4, 2, hd_, False, dtype_) for hd_ in (80, 64)
+              for dtype_ in ("bfloat16", "float32")],
+            (2, 255, 255, 6, 2, 64, True, "bfloat16")]:
         dt = getattr(torch, dtype)
         q = randn((B, Sq, h, hdim), dt, 1)
         k = randn((B, Sk, kv, hdim), dt, 2)
@@ -2824,7 +2844,7 @@ def main() -> int:
         f_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v,
                                                              causal=True))
         s_ms = time_ms(torch, sdpa_fwd(q, k, v))
-        flops, nbytes = flash_fwd_cost(B, SEQ, h, kv, hdim)
+        flops, nbytes = flash_fwd_cost(B, SEQ, h, kv, hdim, True)
         bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
         say(f"  flash_attention_fwd @ B={B} S={SEQ} H={h} KV={kv} hd={hdim} "
             f"causal bf16: kernel {f_ms:.4f} ms per call, sdpa {s_ms:.4f} ms "
@@ -2840,7 +2860,7 @@ def main() -> int:
     plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True),
                        warmup=2, iters=20)
     lib_ms = time_ms(torch, sdpa_fwd(q, k, v))
-    flops, nbytes = flash_fwd_cost(1, SEQ, H, KV, hd)
+    flops, nbytes = flash_fwd_cost(1, SEQ, H, KV, hd, True)
     bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
     report["flash_attention_fwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -2865,37 +2885,45 @@ def main() -> int:
     say_rate("kernel", ms, flops, bound * 1e3)
     say_rate("sdpa", lib_ms, flops, bound * 1e3)
 
-    # head_dim 80 at hubert-xlarge's encode (B=1, S=SEQ, 16/16 heads,
-    # bidirectional): every key pair of every query, 4 hd flops a pair
-    q, k, v = (randn((1, SEQ, 16, 80), torch.bfloat16, seed)
-               for seed in (1, 2, 3))
+    # the head dims below 128, after two calls bit for bit, on the device
+    # beside SDPA and the bound: head_dim 80 at hubert-xlarge's encode
+    # (B=1, S=SEQ, 16/16 heads, bidirectional: every key of every query)
+    # and head_dim 64 at stablelm-1.6b's training shape (B=2, 32/32 heads,
+    # causal), each held against the plain version in the list above
+    for B, h, hdim, causal, who in ((1, 16, 80, False, "hubert-xlarge"),
+                                    (TRAIN_BATCH, 32, 64, True,
+                                     "stablelm-1.6b")):
+        q, k, v = (randn((B, SEQ, h, hdim), torch.bfloat16, seed)
+                   for seed in (1, 2, 3))
 
-    def h80():
-        return fa.flash_attention_fwd(q, k, v, causal=False)
-    first = h80()
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, h80())):
-        fail("two hd-80 flash forward calls differ")
-    h80_ms = time_ms(torch, h80)
-    _, ranked = device_profile(torch, h80, 10)
-    h80_dev = kernel_ms(ranked, "flash_fwd_")
-    h80_plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, False),
-                        warmup=2, iters=10)
-    h80_lib = time_ms(torch, sdpa_fwd(q, k, v, causal=False))
-    lib_dev, _ = device_profile(torch, sdpa_fwd(q, k, v, causal=False), 10)
-    flops = 4.0 * 16 * SEQ * SEQ * 80
-    nbytes = 2 * SEQ * 80 * 16 * 4 + 4 * 16 * SEQ
-    bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
-    say(f"  flash_attention_fwd @ B=1 S={SEQ} H=16 KV=16 hd=80 "
-        f"bidirectional bf16: two calls bit for bit; kernel {h80_ms:.4f} ms "
-        f"per call ({h80_dev:.4f} ms on the device), plain {h80_plain:.4f} "
-        f"ms, sdpa {h80_lib:.4f} ms per call ({lib_dev:.4f} ms on the "
-        f"device), bound {bound * 1e3:.4f} ms ({flops / 1e9:.2f} GFLOP / "
-        f"989 TFLOP/s); on the device {h80_dev / lib_dev:.2f}x sdpa, "
-        f"{100 * bound * 1e3 / h80_dev:.1f}% of the bound")
-    say_rate("kernel", h80_ms, flops, bound * 1e3)
-    say_rate("sdpa", h80_lib, flops, bound * 1e3)
-    del q, k, v, first
+        def fwd_call():
+            return fa.flash_attention_fwd(q, k, v, causal=causal)
+        first = fwd_call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, fwd_call())):
+            fail(f"two hd-{hdim} flash forward calls differ")
+        f_ms = time_ms(torch, fwd_call)
+        _, ranked = device_profile(torch, fwd_call, 10)
+        f_dev = kernel_ms(ranked, "flash_fwd_")
+        f_plain = time_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, causal), warmup=2, iters=10)
+        f_lib = time_ms(torch, sdpa_fwd(q, k, v, causal=causal))
+        lib_dev, _ = device_profile(torch, sdpa_fwd(q, k, v, causal=causal),
+                                    10)
+        flops, nbytes = flash_fwd_cost(B, SEQ, h, h, hdim, causal)
+        bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+        say(f"  flash_attention_fwd @ B={B} S={SEQ} H={h} KV={h} hd={hdim} "
+            f"{'causal' if causal else 'bidirectional'} bf16 ({who}): two "
+            f"calls bit for bit; kernel {f_ms:.4f} ms per call ({f_dev:.4f} "
+            f"ms on the device, {flops / f_dev / 1e9:.1f} TFLOP/s), plain "
+            f"{f_plain:.4f} ms, sdpa {f_lib:.4f} ms per call ({lib_dev:.4f} "
+            f"ms on the device, {flops / lib_dev / 1e9:.1f} TFLOP/s), bound "
+            f"{bound * 1e3:.4f} ms ({flops / 1e9:.2f} GFLOP / 989 TFLOP/s); "
+            f"on the device {f_dev / lib_dev:.2f}x sdpa, "
+            f"{100 * bound * 1e3 / f_dev:.1f}% of the bound")
+        say_rate("kernel", f_ms, flops, bound * 1e3)
+        say_rate("sdpa", f_lib, flops, bound * 1e3)
+        del q, k, v, first
 
     def bwd_inputs(B, Sq, Sk, h, kv, hdim, dtype, fused=False):
         """q, k, v, dO from fixed seeds; with `fused`, q, k and v are

@@ -11,9 +11,10 @@
 // per byte, so the tensor-core rate (989 TFLOP/s bf16) is the bound, not
 // memory (3.35 TB/s): 0.0174 ms.
 //
-// What this design does about it (bf16): the Hopper shape of a fast
-// kernel (machinery in hopper.cuh). One block owns one (batch, head,
-// 128-query tile); query tiles are issued heaviest causal tile first.
+// What this design does about it (bf16, head dim 128): the Hopper shape
+// of a fast kernel (machinery in hopper.cuh). One block owns one (batch,
+// head, 128-query tile); query tiles are issued heaviest causal tile
+// first.
 //  * A producer warp loads Q once and keeps a 2-stage ring of 128-key K
 //    and V tiles full with TMA (tensor maps over the reference layout with
 //    its own strides; zero fill past S handles ragged lengths), each stage
@@ -35,6 +36,47 @@
 // warning C7514) and ping-pong turns of the two consumer warpgroups
 // around their products (no gain in a trial run).
 //
+// Head dims 32, 64 and 80 (stablelm, granite-moe, zamba2; hubert-xlarge)
+// have a schedule of their own, `flash_fwd_bf16_overlap_kernel`. What
+// bounds them: not the products. At hd 80 a 128 x 128 tile's two products
+// take about 0.7 us of the tensor cores, its 16,384 exps about 0.55 us of
+// the MUFU (16 a clock an SM), yet the design above took 1.9 us a tile at
+// hubert's encode (B=1, S=2048, 16/16 heads, bidirectional: 0.0671 ms,
+// 1.17x SDPA's 0.0574 on an H100 80GB HBM3 at 700 W) and still 1.6 us
+// with both products removed: the softmax's dependent chain ran after
+// each product's wait in both warpgroups at once, a block's set-up and
+// drain cost about 5 us over the 8.5 stages of an average causal tile,
+// and hd 80's five 16-column boxes made the K/V ring half as fast per
+// byte as hd 64's (PERF.md, the forward's split).
+// What the schedule does about it:
+//  * Persistent blocks, one an SM, walk the (tile, head, batch) items
+//    heaviest causal tile first in a snake order; the producer loads the
+//    next tile's Q as soon as the consumers hold this one's, and its K/V
+//    ring runs on across tiles, so a tile's set-up overlaps the last one.
+//  * Q lives in registers as the A fragments of S = Q K^T (read from
+//    shared memory once a tile).
+//  * A 128-key stage is two 64-key units a, b. A warpgroup issues the last
+//    stage's O += P_b V, S_a and S_b together; the softmax of a runs while
+//    S_b runs, that of b while O += P_a V runs. No product is in flight
+//    across stages or branches: ptxas serializes the products otherwise
+//    (C7518); the first stage is an instance of its own.
+//  * The row max is taken of the raw scores and p = exp2(s * scale *
+//    log2(e) - m) is one FFMA before the exp, with two partial maxima and
+//    sums a row.
+//  * hd 80's K and V are two 64-column boxes under the 128B swizzle, the
+//    second zero-filled past column 80 (`encode_tile_map`'s wide box), in
+//    a 3-stage ring (4 below hd 80).
+// On an H100 80GB HBM3 at 700 W, in turns with the design above within one
+// call, it took 22% less device time at hubert's encode and over 40% less at
+// stablelm's training shape (B=2, 32/32 heads of 64, causal); chip_smoke.py
+// then read 0.0525 ms (0.92x SDPA's 0.0568) and 0.0998 ms (1.02x SDPA's
+// 0.0976): at hd 64 it is level with SDPA, not ahead (PERF.md, §6).
+// Tried and not kept: the turns above (equal at hd 80, 4% slower on the
+// causal hd-64 shapes); the next unit's S = Q K^T issued a step ahead into
+// a second buffer across iterations (serialized, C7518: +36%); 128-key
+// units (spilled); skipping the empty upper half of the causal diagonal's
+// last unit (no gain); a 5-stage ring at hd 64 (no gain).
+//
 // The design it replaces (64-query tiles of 4 warps,
 // synchronous loads with two __syncthreads per key tile, `mma.sync`
 // m16n8k16, the mask built on every tile) took 0.3516 ms on the device
@@ -47,11 +89,11 @@
 // thread, 64-query blocks.
 //
 // Head dim 80 (hubert-xlarge's encoder) is not a whole number of the
-// 64-column, 128B-swizzled boxes the other widths use, so its tiles are
+// 64-column, 128B-swizzled boxes the other widths use, so its Q tile is
 // five 16-column boxes under the 32B swizzle (hopper.cuh,
-// `tile_box_cols`): each box is one k-step of S = Q K^T, and P V runs as
-// m64n80k16 with V's five boxes one LBO apart; O is 40 fp32 registers a
-// thread. Its bound at hubert's encode (B=1, S=2048, 16/16 heads,
+// `tile_box_cols`), its K and V tiles two 64-column boxes (above); P V
+// runs as m64n80k16 with V's boxes one LBO apart; O is 40 fp32 registers
+// a thread. Its bound at hubert's encode (B=1, S=2048, 16/16 heads,
 // bidirectional) is 4 H S^2 hd = 21.47 GFLOP, 0.0217 ms at 989 TFLOP/s.
 // The fp32 path takes it as 5 output columns a thread (78.6 KB of shared
 // memory).
@@ -63,6 +105,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -250,16 +294,16 @@ constexpr int kFwdStages = 2;
 constexpr int kFwdThreads = 384;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD>
+template <int HD, int STAGES = kFwdStages, int KV_COLS = HD>
 struct FwdSmem {
   using QTile = Tile<HD, kFwdBlockM>;
-  using KVTile = Tile<HD, kFwdBlockN>;
+  using KVTile = Tile<KV_COLS, kFwdBlockN>;
   static constexpr int kQ = 0;
-  static constexpr int kK = QTile::kBytes;                       // + stage
-  static constexpr int kV = kK + kFwdStages * KVTile::kBytes;    // + stage
-  static constexpr int kBars = kV + kFwdStages * KVTile::kBytes;
-  // q full, then kFwdStages full and kFwdStages empty barriers
-  static constexpr int kBytes = kBars + 8 * (1 + 2 * kFwdStages);
+  static constexpr int kK = QTile::kBytes;                   // + stage
+  static constexpr int kV = kK + STAGES * KVTile::kBytes;    // + stage
+  static constexpr int kBars = kV + STAGES * KVTile::kBytes;
+  // q full, STAGES full and STAGES empty barriers, q empty
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * STAGES);
   static constexpr size_t kDynamic = kBytes + 1024;  // for the alignment
 };
 
@@ -442,6 +486,307 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ----------------------------------------------------- bf16, hd <= 80
+// The schedule for head dims 32, 64 and 80 (the file's header says why).
+
+// Columns of the K and V tiles in shared memory: hd, or at hd 80 two
+// 64-column boxes under the 128B swizzle, the second filled with zeros
+// past column 80 by TMA (so each row is read as 160 bytes, not as five
+// 32-byte pieces); the depth of their ring.
+__host__ __device__ constexpr int kv_cols(int hd) {
+  return hd > 64 && hd % 64 != 0 ? (hd + 63) / 64 * 64 : hd;
+}
+__host__ __device__ constexpr int small_stages(int hd) {
+  return kv_cols(hd) > 64 ? 3 : 4;
+}
+
+// The t-th (iq, h, b) tile of this persistent block, false past the
+// last: rounds of gridDim.x tiles, heaviest causal tiles first, alternate
+// rounds taken in reverse (a snake) to even out the blocks' work.
+__device__ __forceinline__ bool fwd_tile(int t, int nq, int H, int B, int& iq,
+                                         int& h, int& b) {
+  const int G = gridDim.x;
+  const int i = t * G + ((t & 1) ? G - 1 - blockIdx.x : blockIdx.x);
+  if (i >= nq * H * B) return false;
+  iq = nq - 1 - i / (H * B);
+  h = i % (H * B) % H;
+  b = i % (H * B) / H;
+  return true;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_bf16_overlap_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              __nv_bfloat16* __restrict__ out,
+                              float* __restrict__ lse, int B, int H, int G,
+                              int Sq, int Sk, float scale, int causal) {
+  constexpr int S = small_stages(HD);
+  constexpr int UN = kFwdBlockN / 2;  // keys a unit: two units a stage
+  static_assert(HD <= 80, "the hd <= 80 schedule");
+  using L = FwdSmem<HD, S, kv_cols(HD)>;
+  using QTile = typename L::QTile;
+  using KVTile = typename L::KVTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + S;
+  uint64_t* q_empty = bars + 1 + 2 * S;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4;
+  const int lane = tid % 32;
+  const int nq = (Sq + kFwdBlockM - 1) / kFwdBlockM;
+  // causal: keys past the tile's last query are masked for every row
+  auto stages_of = [&](int iq) {
+    const int k_end = causal ? min(Sk, (iq + 1) * kFwdBlockM) : Sk;
+    return (k_end + kFwdBlockN - 1) / kFwdBlockN;
+  };
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);  // one arrival per consumer warp
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    setmaxnreg_dec<24>();
+    if (warp == 0 && lane == 0) {
+      int iq, h, b, g = 0;  // g: the ring's running stage
+      for (int t = 0; fwd_tile(t, nq, H, B, iq, h, b); ++t) {
+        if (t > 0) mbar_wait(q_empty, (t - 1) & 1);
+        mbar_arrive_expect_tx(q_full, QTile::kBytes);
+        QTile::load(smem + L::kQ, &map_q, q_full, iq * kFwdBlockM, h, b);
+        for (int kt = 0, nk = stages_of(iq); kt < nk; ++kt, ++g) {
+          const int s = g % S;
+          mbar_wait(&empty[s], ((g / S) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], 2 * KVTile::kBytes);
+          KVTile::load(smem + L::kK + s * KVTile::kBytes, &map_k, &full[s],
+                       kt * kFwdBlockN, h / G, b);
+          KVTile::load(smem + L::kV + s * KVTile::kBytes, &map_v, &full[s],
+                       kt * kFwdBlockN, h / G, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  setmaxnreg_inc<240>();
+  const int c = wg;  // rows 64 c .. 64 c + 63 of the query tile
+  const int g = lane / 4, t = lane % 4;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t k_base = smem_u32(smem + L::kK);
+  const uint32_t v_base = smem_u32(smem + L::kV);
+
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st % S]);
+  };
+
+  float o[HD / 2];
+  // running max (log2 domain, scaled), this lane's part of the sum, and
+  // the last unit's rescale of O
+  float m0, m1, l0, l1, a0, a1;
+  float sa[UN / 2], sb[UN / 2];  // a stage's two units of scores
+  uint32_t pa[UN / 16][4];
+  uint32_t qa[HD / 16][4];  // this warp's rows of Q, as A fragments
+  int row_lo, qr0, qr1, g0 = 0;  // g0: the ring's stage of the tile's first
+
+  // S = Q K^T for unit u (key u * UN on) of ring stage st
+  auto issue_s = [&](float (&sc)[UN / 2], int st, int u) {
+    const uint32_t kb = k_base + (st % S) * KVTile::kBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_rs<0>(sc, qa[kk], KVTile::kmajor(kb, UN * (u & 1), kk), kk > 0);
+    wgmma_commit();
+  };
+  // O += P V for unit u of ring stage st: P (rounded to bf16, as the
+  // reference casts p to v's dtype) stays in registers as the A operand;
+  // V is MN-major
+  auto issue_pv = [&](int st, int u) {
+    const uint32_t vb = v_base + (st % S) * KVTile::kBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < UN / 16; ++kk)
+      wgmma_rs<1>(o, pa[kk], KVTile::mnmajor(vb, (UN / 16) * (u & 1) + kk),
+                  1);
+    wgmma_commit();
+  };
+  // the online softmax of unit u's scores, in place: the row max of the
+  // raw scores, then p = exp2(s * scale_log2 - m) with one FFMA before
+  // the exp; a0, a1 rescale O before the previous unit's P V.
+  // sc[4j + e] is (row e < 2 ? qr0 : qr1, key k0 + 8j + 2t + (e & 1)).
+  auto softmax = [&](float (&sc)[UN / 2], int u) {
+    const int k0 = u * UN;
+    // mask only the diagonal and ragged units: keys past Sk do not exist
+    // and weigh 0; causally masked ones weigh exp(-1e30 - m) as in the
+    // reference kernel
+    if ((causal && k0 + UN - 1 > row_lo) || k0 + UN > Sk) {
+#pragma unroll
+      for (int j = 0; j < UN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = e < 2 ? qr0 : qr1;
+          sc[4 * j + e] = key >= Sk ? -INFINITY
+                          : causal && key > row ? kNegInf : sc[4 * j + e];
+        }
+    }
+    // two partial maxima and sums a row halve the dependent chains
+    float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < UN / 8; ++j) {
+      mx[2 * (j & 1)] = fmaxf(mx[2 * (j & 1)], fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx[2 * (j & 1) + 1] =
+          fmaxf(mx[2 * (j & 1) + 1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(fmaxf(mx[0], mx[2])) * scale_log2);
+    const float mn1 = fmaxf(m1, quad_max(fmaxf(mx[1], mx[3])) * scale_log2);
+    a0 = fast_exp2(m0 - mn0);
+    a1 = fast_exp2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < UN / 8; ++j) {
+      sc[4 * j] = fast_exp2(fmaf(sc[4 * j], scale_log2, -mn0));
+      sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], scale_log2, -mn0));
+      sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], scale_log2, -mn1));
+      sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], scale_log2, -mn1));
+      rs[2 * (j & 1)] += sc[4 * j] + sc[4 * j + 1];
+      rs[2 * (j & 1) + 1] += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l0 = l0 * a0 + (rs[0] + rs[2]);
+    l1 = l1 * a1 + (rs[1] + rs[3]);
+  };
+  auto rescale_o = [&]() {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= a0;
+      o[4 * j + 1] *= a0;
+      o[4 * j + 2] *= a1;
+      o[4 * j + 3] *= a1;
+    }
+  };
+  // Stage kt of the tile (units a = 2 kt and b = 2 kt + 1), no product in
+  // flight across stages or branches (ptxas would serialize the products,
+  // C7518): a warpgroup issues the last stage's O += P_b V (none in the
+  // first stage, an instance of its own), then this stage's S_a and S_b;
+  // the softmax of a runs while S_b does, that of b while O += P_a V does.
+  auto stage = [&](int kt, auto first) {
+    constexpr bool kFirst = decltype(first)::value;
+    const int st = g0 + kt;
+    mbar_wait(&full[st % S], (st / S) & 1);
+    if constexpr (!kFirst) {
+      rescale_o();
+      issue_pv(st - 1, 2 * kt - 1);
+    }
+    issue_s(sa, st, 2 * kt);
+    issue_s(sb, st, 2 * kt + 1);
+    wgmma_wait<1>();
+    fence_regs(sa);
+    fence_regs(o);
+    softmax(sa, 2 * kt);
+    to_a_frags(pa, sa);
+    rescale_o();
+    issue_pv(st, 2 * kt);
+    wgmma_wait<1>();
+    fence_regs(sb);
+    softmax(sb, 2 * kt + 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    to_a_frags(pa, sb);
+    if constexpr (!kFirst) release(st - 1);
+  };
+
+  // (the next tile is found at the start of each: so scheduled by ptxas,
+  // hubert-xlarge's encode took 0.0522 ms on the H100 against 0.0570
+  // with fwd_tile in the loop's test)
+  int iq, h, b;
+  bool more = fwd_tile(0, nq, H, B, iq, h, b);
+  for (int tile = 0; more; ++tile) {
+    const int q0 = iq * kFwdBlockM, nk = stages_of(iq);
+    int iq_next, h_next, b_next;
+    more = fwd_tile(tile + 1, nq, H, B, iq_next, h_next, b_next);
+    row_lo = q0 + 64 * c;  // this warpgroup's first query
+    qr0 = row_lo + 16 * warp + g;
+    qr1 = qr0 + 8;
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    m0 = m1 = kNegInf;
+    l0 = l1 = a0 = a1 = 0.f;
+
+    // this warp's 16 rows of Q as the A fragments of HD / 16 k-steps;
+    // then the producer may load the next tile's Q
+    mbar_wait(q_full, tile & 1);
+    const int r = 64 * c + 16 * warp + g;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 16 * kk + 2 * t + 8 * (i >> 1);
+        qa[kk][i] = *reinterpret_cast<const uint32_t*>(
+            smem + L::kQ + (col / QTile::kBoxCols) * QTile::kBoxBytes +
+            swizzled<QTile::kRowBytes>(r + 8 * (i & 1),
+                                       2 * (col % QTile::kBoxCols)));
+      }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_empty);
+
+    stage(0, std::true_type{});
+    for (int kt = 1; kt < nk; ++kt) stage(kt, std::false_type{});
+    rescale_o();
+    issue_pv(g0 + nk - 1, 2 * nk - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    release(g0 + nk - 1);
+    g0 += nk;
+
+    // out is (B, Sq, H, hd) contiguous, lse (B, H, Sq)
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float ls0 = l0 == 0.f ? 1.f : l0, ls1 = l1 == 0.f ? 1.f : l1;
+    const float inv0 = 1.f / ls0, inv1 = 1.f / ls1;
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (qr0 < Sq) {
+      __nv_bfloat16* ob =
+          out + ((static_cast<long long>(b) * Sq + qr0) * H + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(ob + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (t == 0)
+        lse[(static_cast<long long>(b) * H + h) * Sq + qr0] =
+            m0 * kLn2 + logf(ls0);
+    }
+    if (qr1 < Sq) {
+      __nv_bfloat16* ob =
+          out + ((static_cast<long long>(b) * Sq + qr1) * H + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(ob + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      if (t == 0)
+        lse[(static_cast<long long>(b) * H + h) * Sq + qr1] =
+            m1 * kLn2 + logf(ls1);
+    }
+    iq = iq_next;
+    h = h_next;
+    b = b_next;
+  }
+}
+
 // =================================================================== launch
 template <int HD>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out,
@@ -471,25 +816,46 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
                         long long k_sb, long long k_ss, long long k_sh,
                         long long v_sb, long long v_ss, long long v_sh,
                         float scale, int causal, cudaStream_t stream) {
+  // hd <= 80: the overlapped schedule, hd 80's K and V in 64-column boxes
+  constexpr bool wide_kv = HD <= 80 && kv_cols(HD) != HD;
   CUtensorMap map_q, map_k, map_v;
   cudaError_t err =
       encode_tile_map(&map_q, q, HD, Sq, H, B, q_sb, q_ss, q_sh, kFwdBlockM);
   if (err == cudaSuccess)
     err = encode_tile_map(&map_k, k, HD, Sk, KV, B, k_sb, k_ss, k_sh,
-                          kFwdBlockN);
+                          kFwdBlockN, wide_kv);
   if (err == cudaSuccess)
     err = encode_tile_map(&map_v, v, HD, Sk, KV, B, v_sb, v_ss, v_sh,
-                          kFwdBlockN);
+                          kFwdBlockN, wide_kv);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = FwdSmem<HD>::kDynamic;
-  auto kern = flash_fwd_bf16_kernel<HD>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kFwdBlockM - 1) / kFwdBlockM, H, B);
-  kern<<<grid, kFwdThreads, smem, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), lse, H, H / KV,
-      Sq, Sk, scale, causal);
+  const int nq = (Sq + kFwdBlockM - 1) / kFwdBlockM;
+  if constexpr (HD <= 80) {
+    constexpr size_t smem =
+        FwdSmem<HD, small_stages(HD), kv_cols(HD)>::kDynamic;
+    auto kern = flash_fwd_bf16_overlap_kernel<HD>;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int dev, sms;  // one block an SM, or one a tile if fewer
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    kern<<<min(nq * H * B, sms), kFwdThreads, smem, stream>>>(
+        map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), lse, B, H,
+        H / KV, Sq, Sk, scale, causal);
+  } else {
+    constexpr size_t smem = FwdSmem<HD>::kDynamic;
+    auto kern = flash_fwd_bf16_kernel<HD>;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kern<<<dim3(nq, H, B), kFwdThreads, smem, stream>>>(
+        map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), lse, H,
+        H / KV, Sq, Sk, scale, causal);
+  }
   return cudaGetLastError();
 }
 

@@ -10,9 +10,11 @@
 //    SSD's x, B and C cut from the conv output) and the GQA head mapping
 //    need no copy. A box is `rows` x `tile_box_cols(hd)` columns: 64 for
 //    a multiple of 64, hd itself below 64, and 16 for any other multiple
-//    of 16 (hubert's hd 80: five boxes); TMA fills rows past S with zeros,
-//    which is how ragged lengths arrive. The swizzle spans one box row:
-//    128B for 64-column boxes, 64B for 32-column and 32B for 16-column ones
+//    of 16 (hubert's hd 80: five boxes), or on request wide boxes of 64
+//    columns (hd 80 as two, the second zero-filled past column 80); TMA
+//    fills rows past S with zeros, which is how ragged lengths arrive.
+//    The swizzle spans one box row: 128B for 64-column boxes, 64B for
+//    32-column and 32B for 16-column ones
 //    (the SSD's d_state 16, hd 80): the same mode goes into the wgmma
 //    descriptors below, and every tile's shared-memory base is 1024-byte
 //    aligned so the pattern starts at its row 0.
@@ -99,14 +101,20 @@ __host__ __device__ constexpr int tile_box_cols(int hd) {
 // contiguous head dim, read or written in boxes of `rows` rows of one
 // (batch, head); hd is 16, 32 or a multiple of 16 from 64 up, any other
 // width an error (a box of 16 or 32 columns that did not tile hd would
-// drop its last columns silently).
+// drop its last columns silently). `wide` reads a multiple of 16 above
+// 64 that is not one of 64 (hd 80) in 64-column boxes instead, the last
+// one filled with zeros past hd (a Tile of hd rounded up to 64 columns
+// holds them); any other hd with `wide` is an error.
 inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int hd,
                                    int S, int heads, int B, long long sb,
-                                   long long ss, long long sh, int rows) {
+                                   long long ss, long long sh, int rows,
+                                   bool wide = false) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const int box_cols = tile_box_cols(hd);
-  if (hd <= 0 || hd % box_cols != 0 ||
+  if (wide && (hd <= 64 || hd % 64 == 0 || hd % 16 != 0))
+    return cudaErrorInvalidValue;
+  const int box_cols = wide ? 64 : tile_box_cols(hd);
+  if (hd <= 0 || (!wide && hd % box_cols != 0) ||
       (box_cols != 16 && box_cols != 32 && box_cols != 64))
     return cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),

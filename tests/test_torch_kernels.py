@@ -49,6 +49,8 @@ def _np(t):
     (2, 128, 128, 4, 2, 32, True),     # GQA
     (1, 256, 256, 2, 1, 64, True),     # MQA longer
     (1, 128, 128, 4, 4, 64, False),    # bidirectional
+    (1, 128, 128, 4, 4, 80, False),    # hubert-xlarge's head_dim 80
+    (2, 192, 192, 4, 2, 80, True),     # hd 80, GQA, causal
 ])
 def test_flash_attention_ref_matches_pallas(pallas, B, Sq, Sk, H, KV, hd,
                                             causal, dtype):
@@ -146,13 +148,28 @@ def _qkv(q, k, v, fused):
     (1, 256, 48, 4, 128, True, False),    # starcoder2-15b: a group of 12
     (1, 256, 12, 2, 128, True, False),    # qwen2-vl-2b: a group of 6
     (1, 256, 32, 32, 64, True, False),    # stablelm-1.6b: MHA
+    # the training shapes at hd <= 80 (stablelm's, hubert's): persistent
+    # blocks walking several tiles of both batches
+    (2, 2048, 32, 32, 64, True, False),
+    (2, 2048, 16, 16, 80, False, False),
+    # the edges of the hd <= 80 schedule's 64-key units and 128-key
+    # stages: one unit, a ragged last unit or stage, a tile + 1; Sq 192
+    # with Sk 320; a group of 3 heads
+    *[(2, s, 4, 2, hd, causal, False)
+      for s in (64, 127, 129, 191, 255) for hd in (80, 64)
+      for causal in (True, False)],
+    (2, (192, 320), 4, 2, 80, False, False),
+    (2, (192, 320), 4, 2, 64, False, False),
+    (2, 255, 6, 2, 64, True, False),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, B, S, H, KV, hd, causal,
                                             fused, dtype):
+    """S is Sq = Sk, or a pair (Sq, Sk)."""
     from repro_torch.kernels import flash_attention as fa
     tol = _TOL[dtype]
-    _, (q, k, v) = _inputs(3, [(B, S, H, hd), (B, S, KV, hd),
-                               (B, S, KV, hd)], dtype)
+    Sq, Sk = S if isinstance(S, tuple) else (S, S)
+    _, (q, k, v) = _inputs(3, [(B, Sq, H, hd), (B, Sk, KV, hd),
+                               (B, Sk, KV, hd)], dtype)
     q, k, v = _qkv(q.to(cuda), k.to(cuda), v.to(cuda), fused)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     want_out, want_lse = ref.flash_attention_ref(q, k, v, causal)
@@ -162,20 +179,24 @@ def test_flash_kernel_matches_plain_on_card(cuda, B, S, H, KV, hd, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernel_at_hd80_is_deterministic_on_card(cuda, causal):
-    """Two bf16 forward calls at hubert-xlarge's encode shape give the
-    same bits, and the output keeps every one of the 80 columns (a box
-    that dropped columns 64-79 would leave them unwritten)."""
+@pytest.mark.parametrize("causal,hd", [
+    pytest.param(False, 80, id="False"), pytest.param(True, 80, id="True"),
+    pytest.param(True, 64, id="True-hd64")])
+def test_flash_kernel_at_hd80_is_deterministic_on_card(cuda, causal, hd):
+    """Two bf16 forward calls at hubert-xlarge's encode shape (hd 80)
+    and at stablelm-1.6b's causal hd 64 give the same bits, and the output
+    keeps its last 16 columns (at hd 80 a box that dropped columns 64-79
+    would leave them unwritten)."""
     from repro_torch.kernels import flash_attention as fa
-    _, (q, k, v) = _inputs(4, [(1, 2048, 16, 80)] * 3, "bfloat16")
+    H = 16 if hd == 80 else 32
+    _, (q, k, v) = _inputs(4, [(1, 2048, H, hd)] * 3, "bfloat16")
     q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
     first = fa.flash_attention_fwd(q, k, v, causal=causal)
     again = fa.flash_attention_fwd(q, k, v, causal=causal)
     want, _ = ref.flash_attention_ref(q, k, v, causal)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
-    tail = first[0][..., 64:].float() - want[..., 64:].float()
+    tail = first[0][..., hd - 16:].float() - want[..., hd - 16:].float()
     assert float(tail.abs().max()) <= 2e-2 * float(want.float().abs().max())
 
 
