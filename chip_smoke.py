@@ -107,7 +107,7 @@ Phases, each of which exits non-zero on failure:
             numbers. (a) `make_train_step` at full width (bf16) for
             qwen3-1.7b and mamba2-1.3b over 8 (B, S) points from (1, 512)
             to (2, 2048) (phase 3 holds the flash and SSD kernels at each
-            of these shapes), 2 warm-up steps, the median of 9 steps timed
+            of these shapes), 2 warm-up steps, the median of 5 steps timed
             by CUDA events beside their median wall time, and one
             profiled step's device busy time; each point launching the
             kernels a step as phases 6 and 10 predict; rows {arch, gpu,
@@ -190,10 +190,35 @@ Phases, each of which exits non-zero on failure:
             resnet_15 and shake_shake_small card vs CPU: in fp64 the loss
             and every gradient leaf (1e-12, 1e-8 of its max); in fp32 with
             TF32 off the loss within 1e-5 of fp64's, the leaves printed.
+21. qwen3-1.7b at full width on three paths no earlier phase drives:
+            (a) the §II asynchronous-PS emulation, `Session.train(mode=
+            "async_ps")`: 8 updates of 4 workers paced 0.1-0.4 (B=2,
+            S=2048, bf16), each a gradient pass at a stale snapshot and a
+            forward for the post-update loss (56 flash forward, 28 flash
+            backward, 226 RMSNorm forward and 113 backward launches an
+            update), finite losses, a staleness histogram of 8 with some
+            staleness, ms an update and peak memory; cut to 2 layers in
+            fp32, 4 updates on the card against the CPU from one set of
+            weights (losses within 1e-3, histogram and update counts
+            equal). (b) `remat` "none", "full" and "dots" from one set of
+            weights and one batch (B=2, S=2048): the loss bit-equal, the
+            gradient norm within 1e-6 and each leaf within 1e-5 of its max,
+            the recompute's launches (56 flash forward, 225 RMSNorm forward
+            a gradient pass), then 4 AdamW steps each, step ms and peak;
+            "full" at B=8, where a step without checkpointing would not
+            fit, its peak and tokens/s. (c) the int8 KV cache: phase 5's
+            serve with `kv_quant=True` twice (identical greedy replay) and
+            with the bf16 cache once on the same weights, decode p50/p95 and
+            tokens/s side by side, the cache's bytes a token, the gateway's
+            logits against bf16 prefill with each cache; cut to 2 layers in
+            fp32, 10 tokens decoded with the int8 cache against prefill
+            within the reference's own bounds (relative 0.05, correlation
+            0.999).
 
 Then one JSON line per the kernels (launches summed over the prefill,
-serve, train, fleet, live, model-leg, trace/serving, MoE, dense, VLM and
-encoder phases, each counted from 0), the card line again, and the result line
+serve, train, fleet, live, model-leg, trace/serving, MoE, dense, VLM,
+encoder, async, remat and int8 phases, each counted from 0), the card line
+again, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the repository beside it, it fails
 before printing any result.
@@ -1444,7 +1469,7 @@ SPEED_HELD = (2, 1024)
 # version, as it holds the flash kernels at qwen3's grid shapes
 SPEED_SSD_CASES = [(b, s, 64, 64, 1, 128, min(256, s), "bfloat16")
                    for b, s in SPEED_GRID if s != SEQ]
-STEP_WARMUP, STEP_TIMED = 2, 9
+STEP_WARMUP, STEP_TIMED = 2, 5
 # phase 15 (§IV): the saved trees, (arch, SMOKE?, depth or None) from
 # 1.4 MB to 2.05 GB of fp32 params, each saved CKPT_SAVES times, then the
 # full-width qwen3-1.7b params (6.88 GB) once as the held-out point; under
@@ -2470,6 +2495,423 @@ def phase_cnn(c, tag: str) -> None:
         f"{time.monotonic() - t_phase:.1f} s")
 
 
+# the §II asynchronous-PS emulation, activation checkpointing and the int8
+# KV cache at full qwen3-1.7b width (phase 21)
+ASYNC_PACES = (0.1, 0.2, 0.3, 0.4)
+ASYNC_UPDATES = 8
+ASYNC_PARITY = {"updates": 4, "seq": 256, "loss": 1e-3}
+REMAT_STEPS = 4                  # AdamW steps a policy; the first warms up
+# a batch whose step phase 6's reckoning (27.5 GB of AdamW state, 18.9 GB
+# of activations a B=2 step) puts beyond the card without checkpointing
+# (84.2 GB) and "full" under the 72 GB fit (60.3 GB between the B=2 and
+# B=8 peaks "full" reached on an H100 80GB HBM3: 34.64 and 73.14 GB)
+REMAT_BIG_BATCH = 6
+REMAT_TOL = {"grad_norm": 1e-6, "grad_leaf": 1e-5}
+KV_DEPTH2 = {"batch": 2, "seq": 10, "rel": 0.05, "corr": 0.999}
+FIT_GB = 72.0
+
+
+@contextlib.contextmanager
+def drawn_from(c, params):
+    """While open, `model_api.init` gives a copy of ``params`` on the
+    device it is asked for: a session on the card and one on the CPU
+    start from one set of weights."""
+    api = c.model_api
+    init = api.init
+
+    def copied(cfg, generator=None, *, device=None):
+        return c.tree_map(lambda t: t.to(device, copy=True), params), None
+    api.init = copied
+    try:
+        yield
+    finally:
+        api.init = init
+
+
+def phase_async(c, tag: str) -> dict:
+    """(a) `Session.train(mode="async_ps")` at full width: ASYNC_UPDATES
+    updates of len(ASYNC_PACES) workers (B=TRAIN_BATCH, S=SEQ, bf16), each
+    update a gradient pass at its worker's snapshot and a forward for the
+    post-update loss; finite losses, the staleness histogram, the launches
+    an update; ms an update and peak memory. Then the same emulation cut
+    to 2 layers in fp32, ASYNC_PARITY["updates"] updates on the card and
+    on the CPU from one set of weights: losses within ASYNC_PARITY["loss"]
+    relative, the histogram and the update counts equal. Returns the
+    full-width run's launches."""
+    torch = c.torch
+    t_phase = time.monotonic()
+    cfg = c.get_config("qwen3-1.7b", smoke=False)
+    L, n = cfg.n_layers, norm_count(cfg)
+    per_update = counts(flash_attention_fwd=2 * L, flash_attention_bwd=L,
+                        rmsnorm_fwd=2 * n, rmsnorm_bwd=n)
+    workers = len(ASYNC_PACES)
+    say(f"[{tag}a] async PS: {cfg.name} Session.train(mode='async_ps', "
+        f"{ASYNC_UPDATES} updates, {workers} workers paced "
+        f"{list(ASYNC_PACES)}, global_batch={TRAIN_BATCH}, seq_len={SEQ}), "
+        f"full width, {cfg.dtype}, SGD at the run's lr")
+    sess = c.Session.from_arch("qwen3-1.7b", smoke=False)
+    stamps = []
+    sess.bus.subscribe("async_step",
+                       lambda kind, payload: stamps.append(time.monotonic()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c.ops.reset_launches()
+    t0 = time.monotonic()
+    rep = sess.train(ASYNC_UPDATES, global_batch=TRAIN_BATCH, seq_len=SEQ,
+                     members=workers, mode="async_ps",
+                     worker_step_times=list(ASYNC_PACES))
+    torch.cuda.synchronize()
+    launches = dict(c.ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    (stale,) = [e.payload for e in sess.bus.of_kind("staleness")]
+    want = {k: ASYNC_UPDATES * v for k, v in per_update.items()}
+    say(f"  launches {launches} (predicted {want}: {per_update} an update)")
+    if launches != want:
+        fail("the async updates did not launch the kernels as predicted")
+    hist = stale["hist"]
+    say(f"  losses {rep.losses}; staleness histogram {hist}; updates by "
+        f"worker {stale['worker_updates']}; paces {stale['worker_step_time']}")
+    if not all(math.isfinite(x) for x in rep.losses):
+        fail("an async loss is not finite")
+    if sum(hist.values()) != ASYNC_UPDATES or max(hist) < 1:
+        fail(f"the staleness histogram {hist} does not count "
+             f"{ASYNC_UPDATES} updates with some staleness")
+    per = [b - a for a, b in zip(stamps, stamps[1:])]
+    ms = statistics.median(per) * 1e3
+    say(f"  {ms:.1f} ms an update (median of updates 2-{ASYNC_UPDATES}, "
+        f"host clock between async_step events: gradient pass, update, "
+        f"post-update loss; spread {min(per) * 1e3:.1f}-"
+        f"{max(per) * 1e3:.1f}), {TRAIN_BATCH * SEQ / ms * 1e3:.0f} "
+        f"gradient tokens/s; the first update {1e3 * (stamps[0] - t0):.1f}"
+        f" ms after the call (weights drawn); peak memory {peak_gb:.2f} GB "
+        f"(reckoned ~60: {workers} snapshots and the current fp32 trees, "
+        f"a gradient tree, a step's activations; {FIT_GB:.0f} GB the fit)")
+    if peak_gb > FIT_GB:
+        say(f"  the peak is over {FIT_GB:.0f} GB: fewer workers would fit")
+    del sess, rep
+    release(torch)
+
+    pcfg = cfg.with_(n_layers=2, dtype="float32")
+    p_seq, p_upd = ASYNC_PARITY["seq"], ASYNC_PARITY["updates"]
+    say(f"  depth 2, fp32: {p_upd} async updates of B=1, S={p_seq} on the "
+        "card and on the CPU from one set of weights")
+    cpu_params, _ = c.model_api.init(pcfg, torch.Generator().manual_seed(3),
+                                     device="cpu")
+    runs = {}
+    for where in ("cuda", "cpu"):
+        s = c.Session(pcfg, c.RunConfig(), arch="qwen3-1.7b",
+                      device=c.dev if where == "cuda" else "cpu")
+        t0 = time.monotonic()
+        with drawn_from(c, cpu_params):
+            r = s.train(p_upd, global_batch=1, seq_len=p_seq,
+                        members=workers, mode="async_ps",
+                        worker_step_times=list(ASYNC_PACES))
+        runs[where] = (r.losses, s.bus.of_kind("staleness")[0].payload,
+                       time.monotonic() - t0)
+        del s, r
+    release(torch)
+    (gl, gs, gt), (cl, cs, ct) = runs["cuda"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    say(f"  losses card {gl} CPU {cl} (max rel {rel:.3e}, tol "
+        f"{ASYNC_PARITY['loss']}); histogram card {gs['hist']} CPU "
+        f"{cs['hist']}; updates by worker card {gs['worker_updates']} CPU "
+        f"{cs['worker_updates']}; card {gt:.1f} s, CPU {ct:.1f} s")
+    if (not rel <= ASYNC_PARITY["loss"] or gs["hist"] != cs["hist"]
+            or gs["worker_updates"] != cs["worker_updates"]):
+        fail("the card's async updates disagree with the CPU's")
+    say(f"  async PS in {time.monotonic() - t_phase:.1f} s")
+    return launches
+
+
+def phase_remat(c, tag: str) -> dict:
+    """(b) Activation checkpointing at full width, B=TRAIN_BATCH, S=SEQ,
+    bf16, from one set of weights and one batch under "none", "full" and
+    "dots": a gradient pass (`loss_fn` and its backward) whose loss must
+    be bit-equal to "none"'s, its gradient norm within
+    REMAT_TOL["grad_norm"] relative and each gradient leaf within
+    REMAT_TOL["grad_leaf"] of its max, with the recompute's launches
+    (each layer's flash forward and four RMSNorm forwards again); then
+    REMAT_STEPS AdamW steps (`make_train_step`) from the same weights,
+    step ms (the median after the first) and peak memory. Last, "full"
+    at B=REMAT_BIG_BATCH, a batch whose step phase 6's reckoning puts
+    beyond the card without checkpointing: its peak and tokens/s.
+    Returns the launches."""
+    torch, flatten = c.torch, c.flatten
+    t_phase = time.monotonic()
+    cfg = c.get_config("qwen3-1.7b", smoke=False)
+    L, n = cfg.n_layers, norm_count(cfg)
+    plain = counts(flash_attention_fwd=L, flash_attention_bwd=L,
+                   rmsnorm_fwd=n, rmsnorm_bwd=n)
+    again = counts(flash_attention_fwd=2 * L, flash_attention_bwd=L,
+                   rmsnorm_fwd=n + 4 * L, rmsnorm_bwd=n)
+    want = {"none": plain, "full": again, "dots": again}
+    say(f"[{tag}b] remat: {cfg.name} full width, B={TRAIN_BATCH} S={SEQ} "
+        f"{cfg.dtype}; a gradient pass and {REMAT_STEPS} AdamW steps under "
+        "each policy from one set of weights and one batch")
+    params, _ = c.model_api.init(cfg, device=c.dev)
+    host = [t.to("cpu", copy=True) for _, t in flatten(params)]
+
+    def restore():
+        for (_, t), h in zip(flatten(params), host):
+            t.copy_(h)
+
+    def batch_of(b):
+        loader = c.ShardedLoader(c.source_for_config(cfg, SEQ, seed=1), b)
+        return {k_: torch.from_numpy(v_).to(c.dev)
+                for k_, v_ in loader.next_global(1).items()}
+    batch = batch_of(TRAIN_BATCH)
+    total = counts()
+    ref = None
+    rows = {}
+    for pol in ("none", "full", "dots"):
+        pcfg = cfg.with_(remat=pol)
+        restore()
+        live = c.tree_map(lambda t: t.detach().requires_grad_(), params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c.ops.reset_launches()
+        t0 = time.monotonic()
+        loss = c.model_api.loss_fn(live, pcfg, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        grad_ms = (time.monotonic() - t0) * 1e3
+        grad_peak = torch.cuda.max_memory_allocated() / 1e9
+        got = dict(c.ops.launches)
+        for k_ in total:
+            total[k_] += got[k_]
+        say(f"  {pol}: gradient pass launches {got} (predicted {want[pol]})")
+        if got != want[pol]:
+            fail(f"remat={pol!r}: the gradient pass did not launch the "
+                 "kernels as predicted")
+        grads = [t.grad for _, t in flatten(live)]
+        del live
+        norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+        loss = loss.detach().cpu()
+        if ref is None:
+            ref = (loss, norm, [g.cpu() for g in grads])
+            line = "the reference"
+        else:
+            worst = max(float((g - r.to(c.dev)).abs().max())
+                        / float(r.abs().max()) for g, r in zip(grads, ref[2]))
+            norm_rel = abs(norm - ref[1]) / ref[1]
+            same_loss = torch.equal(loss, ref[0])
+            line = (f"loss {'bit-equal' if same_loss else 'DIFFERS'}, grad "
+                    f"norm {'bit-equal' if norm == ref[1] else 'differs'} "
+                    f"(rel {norm_rel:.3e}, tol {REMAT_TOL['grad_norm']}), "
+                    f"worst leaf {worst:.3e} of its max (tol "
+                    f"{REMAT_TOL['grad_leaf']})")
+            if (not same_loss or not norm_rel <= REMAT_TOL["grad_norm"]
+                    or not worst <= REMAT_TOL["grad_leaf"]):
+                fail(f"remat={pol!r} changed the loss or the gradients")
+        del grads
+        say(f"  {pol}: loss {float(loss):.6f}, grad norm {norm:.6f}: {line};"
+            f" gradient pass {grad_ms:.1f} ms (host clock, one call), peak "
+            f"{grad_peak:.2f} GB")
+        restore()
+        release(torch)
+        step, opt = c.steps.make_train_step(pcfg, c.RunConfig())
+        state = c.steps.TrainState(params, opt.init(params),
+                                   torch.zeros((), dtype=torch.int32))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c.ops.reset_launches()
+        times = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.monotonic()
+            state, _m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+        got = dict(c.ops.launches)
+        for k_ in total:
+            total[k_] += got[k_]
+        if got != {k_: REMAT_STEPS * v for k_, v in want[pol].items()}:
+            fail(f"remat={pol!r}: the AdamW steps did not launch the "
+                 "kernels as predicted")
+        rows[pol] = (statistics.median(times[1:]),
+                     torch.cuda.max_memory_allocated() / 1e9)
+        busy_ms, _ = device_profile(torch, lambda: step(state, batch), 1,
+                                    host=False)
+        each = ", ".join(f"{t:.1f}" for t in times)
+        say(f"  {pol}: AdamW step {rows[pol][0]:.1f} ms (median of steps "
+            f"2-{REMAT_STEPS}, host clock; {each}), "
+            f"{TRAIN_BATCH * SEQ / rows[pol][0] * 1e3:.0f} tokens/s, peak "
+            f"{rows[pol][1]:.2f} GB; one more step's device busy time "
+            f"{busy_ms:.1f} ms ({100 * busy_ms / rows[pol][0]:.1f}% of the "
+            "step)")
+        del state, opt, step
+        release(torch)
+    base_ms, base_gb = rows["none"]
+    say("  against none: " + "; ".join(
+        f"{p}: {rows[p][0] / base_ms:.3f}x the step ms, "
+        f"{rows[p][1] - base_gb:+.2f} GB" for p in ("full", "dots")))
+
+    big = REMAT_BIG_BATCH
+    restore()
+    del host
+    release(torch)
+    acts = 46.39 - 27.5
+    say(f"  full at B={big}: phase 6's reckoning puts a step without "
+        f"checkpointing at 27.5 + {big / TRAIN_BATCH:g} x {acts:.1f} = "
+        f"{27.5 + big / TRAIN_BATCH * acts:.1f} GB (AdamW's 16 bytes a "
+        "parameter, and the activations of its B=2 peak)")
+    bcfg = cfg.with_(remat="full")
+    bbatch = batch_of(big)
+    step, opt = c.steps.make_train_step(bcfg, c.RunConfig())
+    state = c.steps.TrainState(params, opt.init(params),
+                               torch.zeros((), dtype=torch.int32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c.ops.reset_launches()
+    times = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        state, m = step(state, bbatch)
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    got = dict(c.ops.launches)
+    for k_ in total:
+        total[k_] += got[k_]
+    if got != {k_: 3 * v for k_, v in want["full"].items()}:
+        fail(f"remat='full' at B={big}: the steps did not launch the "
+             "kernels as predicted")
+    big_ms = statistics.median(times[1:])
+    big_gb = torch.cuda.max_memory_allocated() / 1e9
+    say(f"  full at B={big}: step {big_ms:.1f} ms (median of steps 2-3; "
+        f"{', '.join(f'{t:.1f}' for t in times)}), "
+        f"{big * SEQ / big_ms * 1e3:.0f} tokens/s, peak {big_gb:.2f} GB, "
+        f"loss {float(m['loss']):.4f}")
+    if not math.isfinite(float(m["loss"])):
+        fail("the checkpointed large-batch step's loss is not finite")
+    if big_gb > FIT_GB:
+        say(f"  the peak is over {FIT_GB:.0f} GB: a smaller batch would fit")
+    del state, opt, step, params, bbatch, batch
+    release(torch)
+    say(f"  remat in {time.monotonic() - t_phase:.1f} s")
+    return total
+
+
+def phase_int8(c, tag: str) -> dict:
+    """(c) The int8 KV cache at full width: `Session.serve` (as phase 5:
+    N_BATCH slots, PROMPT_LEN-token prompts, N_TOKENS tokens) with the
+    bf16 cache and with `kv_quant=True` in turns (bf16, int8, int8, bf16)
+    on the same weights: each cache's replay identical, the RMSNorm
+    launches a decode step as phase 5's, decode p50/p95 and tokens/s side
+    by side; the cache's bytes a token; the gateway's logits at the last
+    prompt position against bf16 prefill's with each cache (printed), and
+    one gateway decode step's device time with each. Then the model cut to 2
+    layers in fp32 on the card, KV_DEPTH2's tokens decoded with the int8
+    cache against the fp32 prefill, as the reference's own test holds
+    them (tests/test_kv_quant.py: relative distance and correlation).
+    Returns the launches."""
+    torch = c.torch
+    t_phase = time.monotonic()
+    cfg = c.get_config("qwen3-1.7b", smoke=False)
+    qcfg = cfg.with_(kv_quant=True)
+    n = norm_count(cfg)
+    steps = PROMPT_LEN + N_TOKENS - 1
+    say(f"[{tag}c] int8 KV cache: {cfg.name} full width, Session.serve("
+        f"tokens={N_TOKENS}, batch={N_BATCH}, prompt_len={PROMPT_LEN}) with "
+        "the bf16 cache and with kv_quant=True in turns (bf16, int8, int8, "
+        "bf16); greedy")
+    bsess = c.Session(cfg, arch="qwen3-1.7b")
+    qsess = c.Session(qcfg, arch="qwen3-1.7b")
+    if fingerprint(torch, bsess.params, c.flatten) != fingerprint(
+            torch, qsess.params, c.flatten):
+        fail("the two sessions drew different weights")
+    c.ops.reset_launches()
+    kw = dict(tokens=N_TOKENS, batch=N_BATCH, prompt_len=PROMPT_LEN, seed=1)
+    turns = [("bf16", bsess), ("int8", qsess), ("int8", qsess),
+             ("bf16", bsess)]
+    reps = [(what, sess.serve(**kw)) for what, sess in turns]
+    torch.cuda.synchronize()
+    launches = dict(c.ops.launches)
+    want = counts(rmsnorm_fwd=len(turns) * steps * n)
+    say(f"  launches {launches} (predicted {want}: {n} RMSNorm a decode "
+        "step)")
+    if launches != want:
+        fail("the int8 serve did not launch the kernels as predicted")
+    (_, b1), (_, q1), (_, q2), (_, b2) = reps
+    for what, x, y in (("int8", q1, q2), ("bf16", b1, b2)):
+        a, b = x.generated, y.generated
+        if a.shape != (N_BATCH, N_TOKENS) or not torch.equal(a, b):
+            fail(f"the {what} greedy replay differs: {a.tolist()} vs "
+                 f"{b.tolist()}")
+    agree = float((q1.generated == b1.generated).float().mean())
+    say(f"  int8 and bf16 greedy replays identical; int8 slot 0 tokens "
+        f"{q1.generated[0].tolist()}; {100 * agree:.1f}% of the tokens "
+        "equal the bf16 cache's")
+    for what, r in reps:
+        say(f"  {what} cache: {r.tokens_per_second:.1f} tok/s, decode p50 "
+            f"{r.decode_ms_p50:.3f} ms p95 {r.decode_ms_p95:.3f} ms p99 "
+            f"{r.decode_ms_p99:.3f} ms")
+    per_token = {}
+    for what, cf in (("bf16", cfg), ("int8", qcfg)):
+        state, _ = c.model_api.init_decode_state(cf, 1, 1, device="meta")
+        per_token[what] = sum(t.numel() * t.element_size()
+                              for _, t in c.flatten(state))
+    say(f"  cache bytes a token: int8 {per_token['int8']:,} (28 layers x K, "
+        f"V x 8 heads x (128 int8 + a 4-byte scale)) against bf16 "
+        f"{per_token['bf16']:,}: {per_token['int8'] / per_token['bf16']:.3f}x")
+
+    c.gen.manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (N_BATCH, PROMPT_LEN),
+                           generator=c.gen, device=c.dev)
+    params = bsess.params
+    pre = c.make_prefill_step(cfg)(params, {"tokens": prompt})[:, -1].float()
+    for what, cf in (("bf16", cfg), ("int8", qcfg)):
+        eng = c.GatewayEngine(cf, params, slots=N_BATCH,
+                              max_len=PROMPT_LEN + N_TOKENS, seed=1)
+        for slot in range(N_BATCH):
+            eng.join(slot, rid=slot, prompt=prompt[slot].tolist(),
+                     max_new=N_TOKENS)
+        for _ in range(PROMPT_LEN):
+            eng.step()
+        served = eng.last_logits.float()
+        rel = float((served - pre).abs().max() / pre.abs().max())
+        top = float((served.argmax(-1) == pre.argmax(-1)).float().mean())
+        say(f"  gateway with the {what} cache vs bf16 prefill at position "
+            f"{PROMPT_LEN - 1}: max|diff|/max|prefill| = {rel:.4e}, argmax "
+            f"agreement {top:.2f}")
+        busy_ms, ranked = device_profile(torch, eng.step, 4)
+        say(f"  one gateway decode step ({N_BATCH} slots) with the {what} "
+            f"cache: {busy_ms:.3f} ms on the device in {len(ranked)} kinds "
+            "of kernel")
+        del eng
+    del bsess, qsess, params, pre
+    release(torch)
+
+    pcfg = cfg.with_(n_layers=2, dtype="float32", kv_quant=True)
+    bz, s = KV_DEPTH2["batch"], KV_DEPTH2["seq"]
+    params, _ = c.model_api.init(
+        pcfg, torch.Generator(device=c.dev).manual_seed(4), device=c.dev)
+    c.gen.manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (bz, s), generator=c.gen,
+                         device=c.dev)
+    state, _ = c.model_api.init_decode_state(pcfg, bz, s,
+                                             dtype=torch.float32,
+                                             device=c.dev)
+    with torch.no_grad():
+        for i in range(s):
+            lg, state = c.model_api.decode_step(params, pcfg, state,
+                                                toks[:, i], i)
+        full = c.model_api.prefill(params, pcfg.with_(kv_quant=False),
+                                   {"tokens": toks})[:, -1]
+    rel = float((lg - full).abs().max() / full.abs().max())
+    corr = float(torch.corrcoef(torch.stack([lg.flatten(),
+                                             full.flatten()]))[0, 1])
+    say(f"  depth 2, fp32, B={bz}: {s} tokens decoded with the int8 cache "
+        f"vs the fp32 prefill: max|diff|/max|prefill| = {rel:.4e} (tol "
+        f"{KV_DEPTH2['rel']}), correlation {corr:.6f} (tol > "
+        f"{KV_DEPTH2['corr']})")
+    if not (rel < KV_DEPTH2["rel"] and corr > KV_DEPTH2["corr"]):
+        fail("the int8 decode drifts from prefill beyond the reference's "
+             "bounds")
+    del params, state
+    release(torch)
+    say(f"  int8 KV cache in {time.monotonic() - t_phase:.1f} s")
+    return launches
+
+
 def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
     """Phase 3's RMSNorm part. The forward and backward kernels held
     against the plain versions at every width the port normalises (the
@@ -2743,19 +3185,19 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
-    say(f"[1/20] card: {card}")
+    say(f"[1/21] card: {card}")
     say(f"      torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count={torch.cuda.device_count()}")
 
     # --------------------------------------------------------- 2. build
     t0 = time.monotonic()
     _build.library()
-    say(f"[2/20] build: {_build.library_path().name} in "
+    say(f"[2/21] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
     say_build(_build)
 
     # ------------------------------------------------ 3. kernels vs plain
-    say("[3/20] kernels vs plain versions")
+    say("[3/21] kernels vs plain versions")
     cfg = get_config("qwen3-1.7b", smoke=False)
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     report = {}
@@ -3328,10 +3770,10 @@ def main() -> int:
     L = cfg.n_layers
     n_norms = norm_count(cfg)
     session, params, launches = phase_prefill(
-        c, "4/20", "qwen3-1.7b",
+        c, "4/21", "qwen3-1.7b",
         counts(flash_attention_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "5/20", session, params,
+    add(phase_serve(c, "5/21", session, params,
                     counts(rmsnorm_fwd=n_norms), SERVE_VS_PREFILL_TOL))
     del session, params
     release(torch)
@@ -3339,16 +3781,16 @@ def main() -> int:
         flash_attention_fwd=L, flash_attention_bwd=L, rmsnorm_fwd=n_norms,
         rmsnorm_bwd=n_norms)}
     add(phase_train(
-        c, "6/20", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
+        c, "6/21", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
         attn_step_flops(cfg, TRAIN_BATCH, SEQ),
         "6 N per token plus the attention products"))
-    phase_parity(c, "7/20", "qwen3-1.7b",
+    phase_parity(c, "7/21", "qwen3-1.7b",
                  counts(flash_attention_fwd=2, flash_attention_bwd=2,
                         rmsnorm_fwd=4 * 2 + 1, rmsnorm_bwd=4 * 2 + 1),
                  PARITY_TOL)
 
     # --------------------------------------- 7b. checkpoint and resume
-    say("[7b/20] resume: SMOKE config, checkpoint_interval=2; 4 steps "
+    say("[7b/21] resume: SMOKE config, checkpoint_interval=2; 4 steps "
         "straight vs 2 steps + a new Session restoring at step 2 for 2 more")
     kw = dict(global_batch=4, seq_len=128)
     with tempfile.TemporaryDirectory() as dir_a, \
@@ -3373,9 +3815,9 @@ def main() -> int:
     L = mcfg.n_layers
     n_norms = 2 * L + 1                       # ln and gated norm, final
     session, params, launches = phase_prefill(
-        c, "8/20", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
+        c, "8/21", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "9/20", session, params,
+    add(phase_serve(c, "9/21", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
@@ -3387,10 +3829,10 @@ def main() -> int:
     train_step_launches["mamba2-1.3b"] = counts(ssd_scan_fwd=L,
                                                 rmsnorm_fwd=n_norms,
                                                 rmsnorm_bwd=n_norms)
-    add(phase_train(c, "10/20", "mamba2-1.3b",
+    add(phase_train(c, "10/21", "mamba2-1.3b",
                     train_step_launches["mamba2-1.3b"], ssd_step,
                     "6 N per token plus the SSD products"))
-    phase_parity(c, "11/20", "mamba2-1.3b",
+    phase_parity(c, "11/21", "mamba2-1.3b",
                  counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1,
                         rmsnorm_bwd=2 * 2 + 1),
                  SSM_PARITY_TOL)
@@ -3401,42 +3843,47 @@ def main() -> int:
     n_shared = L // zcfg.shared_attn_every
     n_norms = 2 * L + 2 * n_shared + 1
     session, params, launches = phase_prefill(
-        c, "12/20", "zamba2-1.2b",
+        c, "12/21", "zamba2-1.2b",
         counts(ssd_scan_fwd=L, flash_attention_fwd=n_shared,
                rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "12/20", session, params,
+    add(phase_serve(c, "12/21", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
     release(torch)
 
     # --------------------------------------- 13. the fleet device engine
-    add(phase_fleet(c, "13/20"))
+    add(phase_fleet(c, "13/21"))
 
     # ------------------------------------- 14. the §VI-B live chaos loop
-    add(phase_live(c, "14/20"))
+    add(phase_live(c, "14/21"))
 
     # ------------------------- 15. the §III-§V model leg, fitted on the card
-    add(phase_models(c, "15/20", train_step_launches))
+    add(phase_models(c, "15/21", train_step_launches))
 
     # ------------------- 16. the recorded trace and the serving fleet
-    add(phase_trace_serving(c, "16/20"))
+    add(phase_trace_serving(c, "16/21"))
 
     # ------------------ 17. MoE and MLA: granite-moe and deepseek-v2-lite
     for arch in MOE_ARCHS:
-        add(phase_moe(c, "17/20", arch))
+        add(phase_moe(c, "17/21", arch))
 
     # ---------- 18. the dense and VLM archs: stablelm, qwen2-vl, yi, starcoder2
     for arch in DENSE_ARCHS:
-        add(phase_dense(c, "18/20", arch))
+        add(phase_dense(c, "18/21", arch))
 
     # ------------------------- 19. the audio encoder: hubert-xlarge, hd 80
-    add(phase_encoder(c, "19/20"))
+    add(phase_encoder(c, "19/21"))
 
     # ----------------------------------- 20. the paper's CIFAR-10 CNN zoo
-    phase_cnn(c, "20/20")
+    phase_cnn(c, "20/21")
     say(f"  ({time.monotonic() - t_start:.1f} s since the start)")
+
+    # ---- 21. async PS, remat and the int8 KV cache at full qwen3 width
+    add(phase_async(c, "21/21"))
+    add(phase_remat(c, "21/21"))
+    add(phase_int8(c, "21/21"))
 
     # ------------------------------------------------------------ result
     kernels = []
@@ -3452,7 +3899,7 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
-    say(f"phases 1-20 in {time.monotonic() - t_start:.1f} s")
+    say(f"phases 1-21 in {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@
 
     python -m repro_torch train --arch qwen3-1.7b --full --steps 4 \
         --global-batch 2 --seq 2048
+    python -m repro_torch train --mode async_ps --members 4 --steps 8
     python -m repro_torch serve --arch qwen3-1.7b --full --tokens 16
     python -m repro_torch serve --fleet --providers gcp,aws
     python -m repro_torch plan --score sim --engine jit [--provider aws]
@@ -121,6 +122,20 @@ def _cmd_train(args) -> int:
     from repro_torch.core.trainer import MembershipEvent
 
     session = cli.session_from_args(args)
+    if args.mode == "async_ps":
+        if args.revoke_at or args.checkpoint_dir:
+            raise ValueError("--revoke-at/--checkpoint-dir apply to "
+                             "--mode sync only (the async-PS emulation "
+                             "has no checkpointing or membership events)")
+        rep = session.train(args.steps, global_batch=args.global_batch,
+                            seq_len=args.seq, members=args.members,
+                            mode="async_ps")
+        stale = session.bus.of_kind("staleness")[-1].payload
+        curve = (f"loss {rep.losses[0]:.3f}->{rep.losses[-1]:.3f} "
+                 if rep.losses else "")
+        print(f"arch={args.arch} mode=async_ps updates={rep.steps_run} "
+              f"{curve}staleness_hist={stale['hist']}")
+        return 0
     events = []
     if args.revoke_at and args.members > 1:
         events.append(MembershipEvent(step=args.revoke_at, kind="revoke",

@@ -6,6 +6,8 @@ so far: `describe`, `plan`, `plan_serving`, `predict`, `train`, `serve`,
     best, plans = s.plan(gpu="v100", score="sim", engine="jit")  # §V-C
     pred = s.predict(n_workers=4, gpu="v100")          # Eq (4)/(5)
     rep = s.train(steps=4, global_batch=2, seq_len=2048)
+    rep = s.train(8, global_batch=2, seq_len=2048, members=4,
+                  mode="async_ps")                     # §II async PS
     out = s.serve(tokens=16)                           # the trained weights
     ens = s.simulate(samples=65536, engine="jit")      # §VI-A fleet sim
     card = s.chaos("ps_crash", smoke=True)             # the §VI-B live loop
@@ -18,7 +20,10 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.api.events import EventBus
 from repro_torch.api.serving import ServeReport, generate
@@ -27,6 +32,7 @@ from repro_torch.configs.base import ModelConfig, default_checkpoint_dir
 from repro_torch.core.perf_model.cluster_model import (
     Eq4Inputs, PSBottleneckModel, WorkerSpec, cluster_speed,
     expected_revocations, predict_total_time)
+from repro_torch.core.ps_async import async_sgd
 from repro_torch.core.scheduler import LaunchPlan, plan_launch
 from repro_torch.core.trainer import (MembershipEvent, TrainReport,
                                       TransientTrainer)
@@ -100,10 +106,9 @@ class Session:
                   bus: Optional[EventBus] = None,
                   provider: object = "gcp",
                   **run_overrides) -> "Session":
-        """Resolve a registered architecture id (see `repro_torch.configs`);
-        ids the reference serves but the port does not yet raise
-        `NotImplementedError`. `run_overrides` are `RunConfig` fields;
-        `provider` sets the session's default transient market."""
+        """Resolve a registered architecture id (see `repro_torch.configs`;
+        an unknown id raises `KeyError`). `run_overrides` are `RunConfig`
+        fields; `provider` sets the session's default transient market."""
         run = run or RunConfig()
         if run_overrides:
             run = dataclasses.replace(run, **run_overrides)
@@ -145,7 +150,6 @@ class Session:
         shrink. Counted from a draw under `FakeTensorMode`, which builds
         the tree's shapes and allocates no weights."""
         if self._n_tensors is None:
-            import torch
             from torch._subclasses.fake_tensor import FakeTensorMode
 
             from repro_torch.tree import flatten
@@ -399,7 +403,9 @@ class Session:
               workers: Optional[List[WorkerSpec]] = None,
               clock=None,
               resilience: Optional[object] = None,
-              recalibration: Optional[object] = None) -> TrainReport:
+              recalibration: Optional[object] = None,
+              worker_step_times: Optional[List[float]] = None
+              ) -> TrainReport:
         """Run the transient-aware elastic trainer on the session's device;
         its events stream onto `self.bus` (``step``, ``epoch``,
         ``checkpoint``, ``checkpoint_failed``, ``restore``,
@@ -424,16 +430,38 @@ class Session:
         default: the session's `run.recalibration`) arms CUSUM drift
         detection over Controller deviations and the online refit of the
         `cluster_speed` estimator, versioned in `self.models`.
-        `mode="async_ps"` is not ported yet and raises
-        `NotImplementedError`.
+        `mode="async_ps"` runs the §II asynchronous-PS emulation
+        (`core/ps_async.py`) over the same model and data, from fresh
+        weights, paced by `worker_step_times` (default ``0.1 * (1 + i)``
+        for each of `members` workers): an `async_step` event per applied
+        update and a final `staleness` event (the staleness histogram,
+        per-worker paces and realized update counts) land on the bus.
         """
         if mode == "async_ps":
-            raise NotImplementedError(
-                "mode='async_ps' (the §II asynchronous-PS emulation) is not "
-                "ported to repro_torch yet (ROADMAP.md, queue 1 item 11)")
+            # the §II emulation has no checkpointing, membership events or
+            # controller loop — reject sync-only arguments loudly rather
+            # than silently dropping e.g. a checkpoint_dir the caller is
+            # relying on
+            unsupported = {"events": events, "checkpoint_dir": checkpoint_dir,
+                           "predicted_speed": predicted_speed,
+                           "ps_model": ps_model, "workers": workers,
+                           "resilience": resilience,
+                           "recalibration": recalibration}
+            bad = sorted(k for k, v in unsupported.items() if v)
+            if bad:
+                raise ValueError(
+                    f"mode='async_ps' does not support: {', '.join(bad)} "
+                    "(no checkpointing/controller loop in the emulation)")
+            return self._train_async_ps(
+                steps, global_batch=global_batch, seq_len=seq_len,
+                members=members, worker_step_times=worker_step_times)
         if mode != "sync":
             raise ValueError(f"unknown train mode {mode!r}; "
                              f"known: ('sync', 'async_ps')")
+        if worker_step_times:
+            raise ValueError("worker_step_times applies to "
+                             "mode='async_ps' only (sync pacing is "
+                             "measured, not configured)")
         steps = self.run.total_steps if steps is None else steps
         run = self.run
         if checkpoint_dir is not None:
@@ -470,6 +498,59 @@ class Session:
                                           check_every=check_every)
         # serve() serves the exact final weights (the checkpoint may lag)
         self._params = state.params
+        self.last_report = report
+        return report
+
+    def _train_async_ps(self, steps: Optional[int], *, global_batch: int,
+                        seq_len: int, members: int,
+                        worker_step_times: Optional[List[float]]
+                        ) -> TrainReport:
+        """§II async-PS emulation as a Session mode.
+
+        Workers push gradients computed at stale parameter snapshots; pace
+        differences produce the staleness the paper studies. The weights
+        are drawn afresh by `model_api.init` on the session's device, as
+        the reference draws them. Events: `async_step` per applied update,
+        then one `staleness` event with the histogram, per-worker paces
+        and realized update counts.
+        """
+        steps = self.run.total_steps if steps is None else steps
+        loader = ShardedLoader(source_for_config(self.cfg, seq_len,
+                                                 seed=self.run.seed),
+                               global_batch)
+        params, _ = model_api.init(self.cfg, device=self.device)
+        # default pace spread mirrors the paper's K80-vs-V100 heterogeneity
+        paces = worker_step_times or [0.1 * (1 + i) for i in range(members)]
+
+        def loss_fn(p, batch):
+            return model_api.loss_fn(p, self.cfg, batch)
+
+        def data(worker, gen):
+            # the reference ignores its key here too; each call advances
+            # the loader, so the loss logged after an update is taken on
+            # the next batch, as in the reference
+            return ({k: torch.from_numpy(v).to(self.device)
+                     for k, v in loader.next_global(1).items()},)
+
+        t0 = time.monotonic()
+        final_params, trace = async_sgd(
+            loss_fn, params, data, paces, lr=self.run.lr,
+            total_updates=steps, seed=self.run.seed,
+            on_update=lambda info: self.bus.emit("async_step", **info))
+        # serve() after an async train must see the trained weights, just
+        # like the sync path
+        self._params = final_params
+        self.bus.emit("staleness",
+                      hist=dict(sorted(trace.staleness_hist.items())),
+                      worker_updates=trace.worker_updates,
+                      worker_step_time=trace.worker_step_time,
+                      mode="async_ps")
+        report = TrainReport(
+            steps_run=trace.applied_updates,
+            final_loss=trace.losses[-1] if trace.losses else float("nan"),
+            losses=trace.losses, speed=None, epochs=1, checkpoints=0,
+            restores=0, detections=[],
+            wall_seconds=time.monotonic() - t0)
         self.last_report = report
         return report
 

@@ -44,6 +44,10 @@ def add_train_args(p: argparse.ArgumentParser,
     p.add_argument("--revoke-at", type=int, default=0,
                    help="inject a revocation at this step (0 = none)")
     p.add_argument("--master-weights", action="store_true")
+    p.add_argument("--mode", default="sync", choices=("sync", "async_ps"),
+                   help="sync elastic runtime (default) or the §II "
+                        "asynchronous-PS emulation with staleness "
+                        "telemetry")
     p.add_argument("--grad-compression", default="none",
                    choices=("none", "bf16", "int8", "topk"),
                    help="§VI-B wire compression with error feedback")

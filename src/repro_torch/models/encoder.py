@@ -21,7 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_layer_apply, _layers,
-                                            check_remat, init_layers)
+                                            init_layers, remat)
 
 _CONV_POS_K = 31
 
@@ -44,7 +44,6 @@ def forward(params, cfg: ModelConfig, features: torch.Tensor,
             positions: Optional[torch.Tensor] = None):
     """features: (B, T, frontend_dim) frame embeddings. Returns logits
     (B, T, V) and a zero aux loss."""
-    check_remat(cfg)
     dtype = torch_dtype(cfg.dtype)
     x = features.to(dtype) @ params["frontend_proj"].to(dtype)
     B, T, _ = x.shape
@@ -57,8 +56,12 @@ def forward(params, cfg: ModelConfig, features: torch.Tensor,
     x = x + F.gelu(pos, approximate="tanh")   # jax.nn.gelu's tanh form
     if positions is None:
         positions = torch.arange(T, device=x.device).expand(B, T)
+
+    def layer(x, lp):
+        return _layer_apply(lp, cfg, x, positions)[0]
+
     for lp in _layers(params["layers"]):
-        x, _, _ = _layer_apply(lp, cfg, x, positions)
+        x = remat(cfg, layer, x, lp)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = x @ params["head"].to(dtype)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)

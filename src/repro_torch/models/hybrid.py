@@ -21,7 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models import ssm_lm
-from repro_torch.models.transformer import _head, _layers, check_remat
+from repro_torch.models.transformer import _head, _layers, remat
 from repro_torch.tree import tree_map
 
 
@@ -74,15 +74,20 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None):
     """tokens: (B,S) integer. positions: (B,S). Returns logits (B,S,V)
     and a zero aux loss."""
-    check_remat(cfg)
     B, Sq = tokens.shape
     x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
     if positions is None:
         positions = torch.arange(Sq, device=x.device).expand(B, Sq)
     sp = params["shared_attn"]
-    for gp in _layers(params["mamba_groups"]):
+
+    def group(x, gp):
+        # the reference's group body: its inner layers take the policy
+        # too, so under remat the checkpoints nest, as its scans do
         x, _ = ssm_lm.run_layers(gp, cfg, x)
-        x, _ = _shared_attn_apply(sp, cfg, x, positions)
+        return _shared_attn_apply(sp, cfg, x, positions)[0]
+
+    for gp in _layers(params["mamba_groups"]):
+        x = remat(cfg, group, x, gp)
     if "mamba_tail" in params:
         x, _ = ssm_lm.run_layers(params["mamba_tail"], cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -94,6 +99,14 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 def init_state(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """The decode carrier: the Mamba2 states of the groups and the tail,
+    and one KV cache an application of the shared block. The shared
+    block's cache has no int8 form, as in the reference (whose decode
+    then fails on the missing scale leaves): ``cfg.kv_quant`` raises."""
+    if cfg.kv_quant:
+        raise ValueError(f"kv_quant (the int8 KV cache) is not supported "
+                         f"for the {cfg.family!r} family ({cfg.name}): its "
+                         "shared-attention cache has no scale leaves")
     n_groups, rem = _split_counts(cfg)
     kv_shape = (n_groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     kv_axes = ("layers", "batch", "kv_seq", "kv_heads", None)

@@ -14,8 +14,10 @@ the cache, MLA's prefill attention (`_chunked_attn`: its q/k and v head
 dims differ), the MoE dispatch, expert products and combine, and the
 projections stay plain PyTorch, as the reference left them to XLA.
 
-The int8 KV cache raises `NotImplementedError` in
-`transformer.init_cache` (ROADMAP.md, queue 1 item 6).
+With ``cfg.kv_quant`` the GQA decode cache holds int8 K and V with one
+fp32 scale a (token, head) (`_quant_int8`); each read multiplies the
+int8 values by the scale rounded to bf16, whatever the model's dtype, as
+the reference's decode computes it.
 """
 from __future__ import annotations
 
@@ -92,6 +94,16 @@ def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     """qk-norm: rmsnorm over the head_dim of (B,S,H,hd) — the same row
     function as `rmsnorm`, so it takes the same kernel."""
     return ops.rmsnorm(x, scale.float(), eps)
+
+
+def _quant_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantisation over the last dim: returns (q, scale),
+    scale = max |x| / 127 (at least 1e-8 / 127) in fp32, q = x / scale
+    rounded half to even."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 # ---------------------------------------------------------------------------
@@ -261,9 +273,25 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor,
                        cfg.mrope_sections)
 
     if cache is not None:
-        ck = _cache_store(cache["k"], k, cache_index)
-        cv = _cache_store(cache["v"], v, cache_index)
-        new_cache = {"k": ck, "v": cv}
+        if cfg.kv_quant:
+            # int8 KV cache: one scale a (token, head)
+            kq, ks = _quant_int8(k)
+            vq, vs = _quant_int8(v)
+            ck = _cache_store(cache["k"], kq, cache_index)
+            cv = _cache_store(cache["v"], vq, cache_index)
+            cks = _cache_store(cache["k_scale"], ks, cache_index)
+            cvs = _cache_store(cache["v_scale"], vs, cache_index)
+            new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs}
+            # the reference's bf16 dequantisation as XLA runs it: the
+            # scale rounded to bf16, the product of the (exact) int8 value
+            # and that scale kept in fp32 (XLA's excess precision drops
+            # the product's own rounding to bf16)
+            ck = ck.float() * cks[..., None].to(torch.bfloat16).float()
+            cv = cv.float() * cvs[..., None].to(torch.bfloat16).float()
+        else:
+            ck = _cache_store(cache["k"], k, cache_index)
+            cv = _cache_store(cache["v"], v, cache_index)
+            new_cache = {"k": ck, "v": cv}
         Sk, KV = ck.shape[1], ck.shape[2]
         valid = _cache_valid(cache_index, S, Sk, 3, x.device)
         qg = q.reshape(B, S, KV, H // KV, hd)

@@ -16,7 +16,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.transformer import _head, _layers, check_remat
+from repro_torch.models.transformer import _head, _layers, remat
 
 
 def init_layers(gen: torch.Generator, cfg: ModelConfig,
@@ -43,19 +43,26 @@ def run_layers(layers, cfg: ModelConfig, x: torch.Tensor,
     """Apply the stacked layers ``x <- x + mamba2_block(rmsnorm(x))``.
     With a decode ``state`` (stacked ``conv`` and ``ssm`` leaves) each
     layer steps its own slice, and the new state comes back stacked;
-    otherwise the second value is None."""
+    otherwise the second value is None, and each layer runs under the
+    config's `remat` policy."""
     per_layer = _layers(layers)
-    states = (zip(state["conv"].unbind(0), state["ssm"].unbind(0))
-              if state is not None else [None] * len(per_layer))
+    if state is None:
+        def layer(x, lp):
+            h, _ = S.mamba2_block(lp["mixer"], cfg,
+                                  L.rmsnorm(lp["ln"], x, cfg.norm_eps))
+            return x + h
+
+        for lp in per_layer:
+            x = remat(cfg, layer, x, lp)
+        return x, None
     new = []
-    for lp, st in zip(per_layer, states):
+    for lp, st in zip(per_layer, zip(state["conv"].unbind(0),
+                                     state["ssm"].unbind(0))):
         h, new_st = S.mamba2_block(lp["mixer"], cfg,
                                    L.rmsnorm(lp["ln"], x, cfg.norm_eps),
                                    state=st)
         x = x + h
         new.append(new_st)
-    if state is None:
-        return x, None
     return x, {"conv": torch.stack([c for c, _ in new]),
                "ssm": torch.stack([s for _, s in new])}
 
@@ -64,7 +71,6 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None):
     """tokens: (B,S) integer. Returns logits (B,S,V) and a zero aux
     loss; ``positions`` is accepted and unused, as in the reference."""
-    check_remat(cfg)
     x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
     x, _ = run_layers(params["layers"], cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -5,7 +5,8 @@ MoE, DeepSeek's first layers dense) — the twin of the JAX package's
 
 The layer weights are stacked on a leading ``layers`` axis, as in the
 reference, and a Python loop over that axis takes the place of
-`lax.scan`; ``first_k_dense`` layers form a second stack,
+`lax.scan`, each layer under the config's activation-checkpointing
+policy (`remat`); ``first_k_dense`` layers form a second stack,
 ``dense_layers``, run first. Parameters are drawn from an explicit
 `torch.Generator` with the reference's shapes, scales and fp32 storage;
 the numbers differ from `jax.random`'s, so the tests carry weights across
@@ -13,9 +14,12 @@ with `bridge`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
@@ -81,13 +85,35 @@ def _groups(params) -> List[str]:
         else ["layers"]
 
 
-def check_remat(cfg: ModelConfig) -> None:
-    """Activation checkpointing is not ported: every family's forward
-    refuses a config that asks for it."""
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} (activation checkpointing) is not ported "
-            "yet (ROADMAP.md, queue 1 item 5)")
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``: keep the outputs of products without a batch
+    dimension (``mm``, ``addmm``) and recompute everything else — ``bmm``,
+    the kernels' outputs, the casts and the elementwise ops — as JAX's
+    `checkpoint_dots_with_no_batch_dims` does."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(cfg: ModelConfig, fn: Callable, *args):
+    """``fn(*args)`` under the config's activation-checkpointing policy
+    (the reference's `_remat` over one scanned layer body): ``"full"``
+    keeps only the inputs and recomputes the layer in the backward pass;
+    ``"dots"`` also keeps its ``mm``/``addmm`` outputs (`dots_policy`).
+    The recompute runs the layer's kernels (their autograd Functions)
+    again. Without a gradient (prefill, decode, serving) ``fn`` runs as
+    it is, as the reference's checkpoint is a no-op there."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              dots_policy))
+    raise ValueError(f"unknown remat policy {cfg.remat!r}; known: "
+                     "('none', 'full', 'dots')")
 
 
 def _layer_apply(lp, cfg: ModelConfig, x, positions, cache=None,
@@ -121,7 +147,6 @@ def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     t/h/w rows for M-RoPE; by default each row is 0..S-1. Returns logits
     (B,S,V) and the aux loss summed over the MoE layers (zero without
     any)."""
-    check_remat(cfg)
     if input_embeds is not None:
         x = input_embeds.to(torch_dtype(cfg.dtype))
     else:
@@ -132,9 +157,13 @@ def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
         if cfg.mrope_sections:
             positions = positions.expand(3, B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(x, lp):
+        return _layer_apply(lp, cfg, x, positions)[:2]
+
     for group in _groups(params):
         for lp in _layers(params[group]):
-            x, aux, _ = _layer_apply(lp, cfg, x, positions)
+            x, aux = remat(cfg, layer, x, lp)
             if aux is not None:
                 aux_total = aux_total + aux
     return _head(params, cfg, x), aux_total
@@ -146,12 +175,11 @@ def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Per layer group: K and V (B, max_len, KV, hd) for GQA, or MLA's
-    latent ``c_kv`` (B, max_len, kv_lora_rank) and ``k_rope``."""
-    if cfg.kv_quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 6)")
-
-    def zeros(n, *shape, axes):
+    latent ``c_kv`` (B, max_len, kv_lora_rank) and ``k_rope``. With
+    ``cfg.kv_quant`` GQA's K and V are int8, with fp32 ``k_scale`` and
+    ``v_scale`` (B, max_len, KV); MLA's latent cache ignores it, as in
+    the reference."""
+    def zeros(n, *shape, axes, dtype=dtype):
         return L.Param(torch.zeros((n, batch, max_len) + shape, dtype=dtype,
                                    device=device),
                        ("layers", "batch", "kv_seq") + axes)
@@ -162,8 +190,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             return {"c_kv": zeros(n, m.kv_lora_rank, axes=("qk_lora",)),
                     "k_rope": zeros(n, m.qk_rope_head_dim, axes=(None,))}
         kv, hd = cfg.n_kv_heads, cfg.head_dim
-        return {"k": zeros(n, kv, hd, axes=("kv_heads", None)),
-                "v": zeros(n, kv, hd, axes=("kv_heads", None))}
+        kv_dtype = torch.int8 if cfg.kv_quant else dtype
+        c = {"k": zeros(n, kv, hd, axes=("kv_heads", None), dtype=kv_dtype),
+             "v": zeros(n, kv, hd, axes=("kv_heads", None), dtype=kv_dtype)}
+        if cfg.kv_quant:
+            c["k_scale"] = zeros(n, kv, axes=("kv_heads",),
+                                 dtype=torch.float32)
+            c["v_scale"] = zeros(n, kv, axes=("kv_heads",),
+                                 dtype=torch.float32)
+        return c
 
     c = {"layers": group(cfg.n_layers - cfg.first_k_dense)}
     if cfg.first_k_dense:

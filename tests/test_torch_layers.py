@@ -133,14 +133,6 @@ def test_mlp_swiglu_and_gelu():
                                    rtol=1e-5)
 
 
-def test_unported_paths_raise():
-    """What is left unported raises and names the ROADMAP: the int8 KV
-    cache."""
-    from repro_torch.models import transformer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_cache(TCFG.with_(kv_quant=True), 1, 4)
-
-
 @pytest.mark.parametrize("hd", [80, 128])
 def test_flash_attention_with_a_gradient_reaches_the_launcher(hd):
     """A forward that needs a gradient at head_dim 80 (hubert-xlarge's

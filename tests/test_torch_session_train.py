@@ -2,8 +2,8 @@
 `Session.train` -> `TransientTrainer.run_steps` events, membership epochs,
 writer-lease handover, checkpoint/resume (with the saved compression
 scheme and the legacy layout without a residual), `serve()` after
-`train()`, the CLI, and what is refused until it is ported (the
-asynchronous-PS mode)."""
+`train()` and the CLI. The asynchronous-PS mode is held against the
+reference in tests/test_torch_ps_async.py."""
 import json
 import tempfile
 
@@ -152,9 +152,3 @@ def test_cli_train_needs_a_card_or_cpu(monkeypatch, capsys):
     assert main(["train", "--steps", "1"]) == 2
     assert "device='cpu'" in capsys.readouterr().err
 
-
-@pytest.mark.parametrize("kw", [{"mode": "async_ps"}],
-                         ids=lambda kw: next(iter(kw)))
-def test_unported_train_options_raise(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _session().train(1, checkpoint_dir=str(tmp_path), **KW, **kw)

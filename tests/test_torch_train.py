@@ -181,14 +181,6 @@ def test_loss_fn_value_and_grads_match_jax(J, fp32_model):
     _assert_trees_close(tree_map(lambda p: p.grad, params), jgrads, 1e-4)
 
 
-def test_remat_is_refused():
-    cfg = torch_config("qwen3-1.7b", smoke=True).with_(remat="full")
-    params, _ = tapi.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        tapi.loss_fn(params, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                                   "labels": torch.zeros(1, 4, dtype=torch.int32)})
-
-
 # --------------------------------------------------------- the optimizer
 def _opt_tree(rng, dtype=np.float32):
     return {"a": rng.standard_normal((6, 5)).astype(dtype),
