@@ -205,15 +205,23 @@ Phases, each of which exits non-zero on failure:
             gradient norm within 1e-6 and each leaf within 1e-5 of its max,
             the recompute's launches (56 flash forward, 225 RMSNorm forward
             a gradient pass), then 4 AdamW steps each, step ms and peak;
-            "full" at B=8, where a step without checkpointing would not
-            fit, its peak and tokens/s. (c) the int8 KV cache: phase 5's
-            serve with `kv_quant=True` twice (identical greedy replay) and
-            with the bf16 cache once on the same weights, decode p50/p95 and
-            tokens/s side by side, the cache's bytes a token, the gateway's
-            logits against bf16 prefill with each cache; cut to 2 layers in
-            fp32, 10 tokens decoded with the int8 cache against prefill
-            within the reference's own bounds (relative 0.05, correlation
-            0.999).
+            "full" at B=6, where a step without checkpointing would not
+            fit, its peak, busy time and tokens/s. (c) the int8 KV cache:
+            phase 5's serve with `kv_quant=True` twice (identical greedy
+            replay) and with the bf16 cache once on the same weights,
+            decode p50/p95 and tokens/s side by side, the cache's bytes a
+            token, the gateway's logits against bf16 prefill with each
+            cache; cut to 2 layers in fp32, 10 tokens decoded with the int8
+            cache against prefill within the reference's own bounds
+            (relative 0.05, correlation 0.999).
+22. the dry run against the card: `launch/dryrun.count_cell` on the
+            1x1 mesh (qwen3-1.7b, full width, counted on the meta device)
+            predicts the "full" train steps of phase 21 (B=2 and B=6,
+            S=2048) and phase 4's B=1 prefill: each kernel's launches
+            exactly, the train steps' peak memory within 10% of the
+            measured, and a roofline (the counted FLOPs and bytes over the
+            card's peaks) whose larger term the measured busy time is not
+            below (0.95 x); no new step runs on the card.
 
 Then one JSON line per the kernels (launches summed over the prefill,
 serve, train, fleet, live, model-leg, trace/serving, MoE, dense, VLM,
@@ -242,9 +250,14 @@ import types
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-HBM_BYTES_PER_S = 3.35e12
+# the card's published peaks (dense bf16 and fp32, fp64, HBM): the port's
+# one copy. Without the port's sources beside this script the import fails
+# and the script exits non-zero before it prints anything.
+sys.path.insert(0, str(SRC))
+from repro_torch.device import (H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S,  # noqa: E402
+                                H100_PEAK_FLOPS as PEAK_FLOPS)
+
+PEAK_F64_FLOPS = PEAK_FLOPS["float64"]
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # as tests/test_kernels.py
 # flash backward: fp32 as tests/test_kernels.py holds the Pallas gradients
 # (3e-4, elementwise). bf16, where p and ds are rounded to bf16 for their
@@ -320,9 +333,6 @@ LIVE_BATCH, LIVE_SEQ = 4, 32
 TRAIN_STEPS, TRAIN_BATCH = 4, 2
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
            "rmsnorm_bwd", "ssd_scan_fwd", "event_select_fwd")
-# H100 SXM float64 rate outside the tensor cores (NVIDIA's data sheet); the
-# event select does one comparison per element
-PEAK_F64_FLOPS = 34e12
 # the fleet engines' contract (tests/test_engine_parity.py:_assert_parity):
 # counts exact, times and costs to rtol 1e-9, accruals to 1e-6
 FLEET_N, FLEET_CORPUS_N = 65536, 1024
@@ -395,6 +405,52 @@ def host_ms(torch, fn, batches: int = 10, iters: int = 20) -> float:
         per.append((time.perf_counter() - t0) * 1e3 / iters)
         torch.cuda.synchronize()
     return min(per)
+
+
+def wrapper_calls(torch, fa, ops, rn, dev) -> tuple:
+    """Each kernel wrapper as the main path calls it, as (name, fn) pairs
+    for `host_ms`, bf16 unless named: `ops.flash_attention` under no_grad
+    at qwen3's prefill (1, 2048, 16/8 heads of 128, causal) and
+    `flash_attention_bwd` at its training shape (B=2); `ops.rmsnorm` at a
+    4-slot decode row (4, 2048) and `rmsnorm_bwd` at the training rows
+    (4096, 2048); `ops.ssd_scan` at mamba2's prefill (1, 2048, 64 heads of
+    64, one group, d_state 128); `ops.event_select` on the fleet engine's
+    (65536, 8) float64 events. ``fa``, ``ops`` and ``rn`` are the wrapper
+    modules to call (`scripts/wrapper_host_time.py` passes another
+    tree's); the inputs are drawn from seed 0."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v = randn(1, 2048, 16, 128), randn(1, 2048, 8, 128), randn(
+        1, 2048, 8, 128)
+    q2, k2, v2 = randn(2, 2048, 16, 128), randn(2, 2048, 8, 128), randn(
+        2, 2048, 8, 128)
+    out2, lse2 = fa.flash_attention_fwd(q2, k2, v2, causal=True)
+    do2 = randn(2, 2048, 16, 128)
+    xd, scale = randn(4, 2048), torch.linspace(0.5, 1.5, 2048, device=dev)
+    xt, dyt = randn(4096, 2048), randn(4096, 2048)
+    x_ssd, B_ssd, C_ssd = randn(1, 2048, 64, 64), randn(
+        1, 2048, 1, 128), randn(1, 2048, 1, 128)
+    dt_ssd = torch.rand((1, 2048, 64), generator=gen, device=dev) * 0.1
+    A_ssd = -torch.rand((64,), generator=gen, device=dev)
+    ev = torch.rand((65536, 8), generator=gen, device=dev,
+                    dtype=torch.float64)
+    return (
+        ("ops.flash_attention fwd (1, 2048, 16/8, 128)",
+         lambda: ops.flash_attention(q, k, v, True)),
+        ("flash_attention_bwd (2, 2048, 16/8, 128)",
+         lambda: fa.flash_attention_bwd(q2, k2, v2, out2, lse2, do2,
+                                        causal=True)),
+        ("ops.rmsnorm (4, 2048)", lambda: ops.rmsnorm(xd, scale)),
+        ("rmsnorm_bwd (4096, 2048)", lambda: rn.rmsnorm_bwd(xt, scale, dyt)),
+        ("ops.ssd_scan (1, 2048, 64, 64; n 128)",
+         lambda: ops.ssd_scan(x_ssd, dt_ssd, A_ssd, B_ssd, C_ssd, 256)),
+        ("ops.event_select (65536, 8) float64",
+         lambda: ops.event_select(ev)),
+    )
 
 
 def device_profile(torch, fn, n: int, count=None, host: bool = True,
@@ -565,25 +621,6 @@ def say_build(build) -> None:
         say(f"      SASS {kernel_name(func)}: {hgmma} HGMMA, {hmma} HMMA")
 
 
-def flash_fwd_cost(b, s, h, kv, hd, causal):
-    """Products (QK^T and PV over the pairs the mask keeps) and bytes
-    (q, k, v and out in bf16, lse in fp32) of one forward call."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4.0 * b * h * hd * pairs
-    nbytes = 2 * b * s * hd * (2 * h + 2 * kv) + 4 * b * h * s
-    return flops, nbytes
-
-
-def flash_bwd_cost(b, s, h, kv, hd, causal):
-    """Products (the backward's five: q.k, dO.v, dS K, dS^T Q and P^T dO
-    over the pairs the mask keeps) and bytes (q, out, dO and dq; k, v, dk
-    and dv in bf16, lse in fp32) of one backward call."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 10.0 * b * h * hd * pairs
-    nbytes = 2 * b * s * hd * (4 * h + 4 * kv) + 4 * b * h * s
-    return flops, nbytes
-
-
 def attn_step_flops(cfg, batch: int, seq: int) -> float:
     """The attention products of a train step: 14 hd a pair and head (4
     forward, 10 backward) over the pairs the mask keeps, S(S+1)/2 for a
@@ -663,15 +700,6 @@ def norm_count(cfg) -> int:
     return (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
 
 
-def ssd_flops(b, s, h, p, g, n, chunk) -> float:
-    """Products the SSD scan needs: per chunk of L tokens the causal
-    halves of C·Bᵀ (once per group) and of scores·x (per head), plus
-    C·S and the state update (per head)."""
-    L = chunk
-    pairs = L * (L + 1)            # 2 x the causal (l, m) pairs
-    return b * (s // L) * (g * n * pairs + h * (p * pairs + 4 * L * n * p))
-
-
 def prefill_batch(c, cfg, batch: int = 1, seq: int = 0, seed: int = 0):
     """A prefill batch on the card from `seed`: `seq` (SEQ by default)
     tokens, for the VLM
@@ -693,10 +721,31 @@ def prefill_batch(c, cfg, batch: int = 1, seq: int = 0, seed: int = 0):
     return out
 
 
+def state_bytes(*trees) -> int:
+    """Bytes of the card's tensors in ``trees`` (nested dicts, lists and
+    tuples of tensors), each storage once."""
+    seen, total = set(), 0
+    stack = list(trees)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif hasattr(t, "untyped_storage") and t.is_cuda:
+            st = t.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+    return total
+
+
 def phase_prefill(c, tag: str, arch: str, want: dict):
     """A full-width prefill (B=1, S=SEQ, random weights from seed 0)
-    through `make_prefill_step`, whose launches must be `want`. Returns
-    (session, params, launches)."""
+    through `make_prefill_step`, whose launches must be `want`; its
+    launches, peak, device busy time and the bytes the process held
+    outside the prefill's arguments are kept in ``c.measured`` for
+    phase 22. Returns (session, params, launches)."""
     torch = c.torch
     cfg = c.get_config(arch, smoke=False)
     say(f"[{tag}] prefill: {cfg.name} full width (L={cfg.n_layers} "
@@ -713,6 +762,7 @@ def phase_prefill(c, tag: str, arch: str, want: dict):
     prefill(params, batch)                         # warm-up (cuBLAS, build)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    outside = torch.cuda.memory_allocated() - state_bytes(params, batch)
     c.ops.reset_launches()
     t0 = time.monotonic()
     logits = prefill(params, batch)
@@ -737,8 +787,11 @@ def phase_prefill(c, tag: str, arch: str, want: dict):
     say(f"  prefill {prefill_ms:.2f} ms median of 3 (counted run "
         f"{first_ms:.2f} ms), {SEQ / prefill_ms * 1e3:.0f} tok/s, peak "
         f"memory {peak_gb:.2f} GB")
-    say_profile("prefill", prefill_ms, *device_profile(
-        torch, lambda: prefill(params, batch), 2), by_category=True)
+    busy_ms, ranked = device_profile(torch, lambda: prefill(params, batch), 2)
+    say_profile("prefill", prefill_ms, busy_ms, ranked, by_category=True)
+    vars(c).setdefault("measured", {})[("prefill", arch)] = dict(
+        launches=launches, peak_gb=peak_gb, busy_ms=busy_ms,
+        outside_gb=outside / 1e9)
     return session, params, launches
 
 
@@ -2634,8 +2687,10 @@ def phase_remat(c, tag: str) -> dict:
     REMAT_STEPS AdamW steps (`make_train_step`) from the same weights,
     step ms (the median after the first) and peak memory. Last, "full"
     at B=REMAT_BIG_BATCH, a batch whose step phase 6's reckoning puts
-    beyond the card without checkpointing: its peak and tokens/s.
-    Returns the launches."""
+    beyond the card without checkpointing: its peak, busy time and
+    tokens/s. The "full" steps' launches a step, peaks, busy times and
+    the bytes held outside the step's arguments are kept in
+    ``c.measured`` for phase 22. Returns the launches."""
     torch, flatten = c.torch, c.flatten
     t_phase = time.monotonic()
     cfg = c.get_config("qwen3-1.7b", smoke=False)
@@ -2714,6 +2769,8 @@ def phase_remat(c, tag: str) -> dict:
                                    torch.zeros((), dtype=torch.int32))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        outside = (torch.cuda.memory_allocated()
+                   - state_bytes(state.params, state.opt, batch))
         c.ops.reset_launches()
         times = []
         for _ in range(REMAT_STEPS):
@@ -2731,6 +2788,11 @@ def phase_remat(c, tag: str) -> dict:
                      torch.cuda.max_memory_allocated() / 1e9)
         busy_ms, _ = device_profile(torch, lambda: step(state, batch), 1,
                                     host=False)
+        if pol == "full":
+            vars(c).setdefault("measured", {})[("train", TRAIN_BATCH)] = dict(
+                launches={k_: v // REMAT_STEPS for k_, v in got.items()},
+                peak_gb=rows[pol][1], busy_ms=busy_ms,
+                outside_gb=outside / 1e9)
         each = ", ".join(f"{t:.1f}" for t in times)
         say(f"  {pol}: AdamW step {rows[pol][0]:.1f} ms (median of steps "
             f"2-{REMAT_STEPS}, host clock; {each}), "
@@ -2761,6 +2823,8 @@ def phase_remat(c, tag: str) -> dict:
                                torch.zeros((), dtype=torch.int32))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    outside = (torch.cuda.memory_allocated()
+               - state_bytes(state.params, state.opt, bbatch))
     c.ops.reset_launches()
     times = []
     for _ in range(3):
@@ -2776,9 +2840,15 @@ def phase_remat(c, tag: str) -> dict:
              "kernels as predicted")
     big_ms = statistics.median(times[1:])
     big_gb = torch.cuda.max_memory_allocated() / 1e9
+    big_busy, _ = device_profile(torch, lambda: step(state, bbatch), 1,
+                                 host=False)
+    vars(c).setdefault("measured", {})[("train", big)] = dict(
+        launches={k_: v // 3 for k_, v in got.items()}, peak_gb=big_gb,
+        busy_ms=big_busy, outside_gb=outside / 1e9)
     say(f"  full at B={big}: step {big_ms:.1f} ms (median of steps 2-3; "
         f"{', '.join(f'{t:.1f}' for t in times)}), "
         f"{big * SEQ / big_ms * 1e3:.0f} tokens/s, peak {big_gb:.2f} GB, "
+        f"one more step's device busy time {big_busy:.1f} ms, "
         f"loss {float(m['loss']):.4f}")
     if not math.isfinite(float(m["loss"])):
         fail("the checkpointed large-batch step's loss is not finite")
@@ -2788,6 +2858,87 @@ def phase_remat(c, tag: str) -> dict:
     release(torch)
     say(f"  remat in {time.monotonic() - t_phase:.1f} s")
     return total
+
+
+# the dry run against the card (phase 22): the largest gap of a predicted
+# train peak from the measured one, and the least share of the roofline's
+# larger term that the measured busy time may take
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_BUSY_FLOOR = 0.95
+
+
+def phase_dryrun(c, tag: str) -> None:
+    """The dry run (`launch/dryrun.count_cell`, qwen3-1.7b at full width
+    counted on the meta device, the 1x1 mesh) against what phases 4 and
+    21 measured (``c.measured``): the "full" train step at B=TRAIN_BATCH
+    and B=REMAT_BIG_BATCH, S=SEQ, and the B=1 prefill. Each kernel's
+    launches must equal the card's; a train step's predicted peak (the
+    counted live bytes plus what the process held outside the step's
+    arguments when it ran) must lie within DRYRUN_PEAK_TOL of the
+    measured; the measured busy time must be at least DRYRUN_BUSY_FLOOR
+    of the roofline's larger term (the counted FLOPs and bytes over the
+    card's peaks). That gate is one-sided: it catches FLOPs or bytes
+    counted too high, never too few (the busy time lies 1.4-1.8x the
+    memory term); `tests/test_torch_dryrun.py` holds the counts against
+    closed forms from both sides. Runs nothing on the card."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.monotonic()
+    cfg = c.get_config("qwen3-1.7b", smoke=False)
+    mesh = make_host_mesh()
+    measured = vars(c).get("measured", {})
+    say(f"[{tag}] dry run against the card: {cfg.name} full width, counted "
+        f"on the meta device, mesh {mesh.axis_sizes}; roofline at "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s and "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    for what, shape, key in (
+            (f"train remat=full B={TRAIN_BATCH}",
+             ShapeConfig("train", SEQ, TRAIN_BATCH, "train"),
+             ("train", TRAIN_BATCH)),
+            (f"train remat=full B={REMAT_BIG_BATCH}",
+             ShapeConfig("train", SEQ, REMAT_BIG_BATCH, "train"),
+             ("train", REMAT_BIG_BATCH)),
+            ("prefill B=1", ShapeConfig("prefill", SEQ, 1, "prefill"),
+             ("prefill", "qwen3-1.7b"))):
+        if key not in measured:
+            fail(f"phase 22: no measurement of {what}")
+        m = measured[key]
+        t0 = time.monotonic()
+        pcfg = cfg.with_(remat="full") if shape.kind == "train" else cfg
+        got, _ = dryrun.count_cell("qwen3-1.7b", shape, mesh, cfg=pcfg)
+        count_s = time.monotonic() - t0
+        launches = counts(**{k: v["calls"]
+                             for k, v in got["kernels"].items()})
+        pred_gb = got["peak_bytes"] / 1e9 + m["outside_gb"]
+        gap = (pred_gb - m["peak_gb"]) / m["peak_gb"]
+        terms = dryrun.roofline(got["flops"], got["bytes"])
+        bound = max(terms["compute_s"], terms["memory_s"]) * 1e3
+        by = ("memory" if terms["memory_s"] > terms["compute_s"]
+              else "compute")
+        say(f"  {what} (counted in {count_s:.1f} s, {got['aten_ops']} aten "
+            f"ops): {got['flops'] / 1e12:.2f} TFLOP, "
+            f"{got['bytes'] / 1e9:.1f} GB moved; roofline compute "
+            f"{terms['compute_s'] * 1e3:.1f} ms, memory "
+            f"{terms['memory_s'] * 1e3:.1f} ms ({by}-bound) against "
+            f"{m['busy_ms']:.1f} ms measured busy "
+            f"({m['busy_ms'] / bound:.2f}x the larger term)")
+        say(f"    peak predicted {pred_gb:.2f} GB "
+            f"({got['peak_bytes'] / 1e9:.2f} counted + "
+            f"{m['outside_gb']:.2f} held outside the arguments) vs "
+            f"measured {m['peak_gb']:.2f} GB: {100 * gap:+.2f}%")
+        say(f"    launches predicted {launches}")
+        say(f"    launches measured  {m['launches']}")
+        if launches != m["launches"]:
+            fail(f"phase 22: the dry run's launches of {what} differ from "
+                 "the card's")
+        if shape.kind == "train" and abs(gap) > DRYRUN_PEAK_TOL:
+            fail(f"phase 22: the predicted peak of {what} lies "
+                 f"{100 * gap:+.1f}% from the measured")
+        if m["busy_ms"] < DRYRUN_BUSY_FLOOR * bound:
+            fail(f"phase 22: {what} was busy {m['busy_ms']:.1f} ms, below "
+                 f"{DRYRUN_BUSY_FLOOR} x the roofline's {bound:.1f} ms")
+    say(f"  dry run in {time.monotonic() - t_phase:.1f} s")
 
 
 def phase_int8(c, tag: str) -> dict:
@@ -3043,8 +3194,8 @@ def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
             device_ms(torch, fn, 20, frag, flush) for fn, frag in (
                 (fwd, "rmsnorm_"), (bwd, "rmsnorm_"), (lib_fwd, ""),
                 (lib_bwd, "")))
-        n = rows * dim
-        f_bytes, b_bytes = 2 * 2 * n + 4 * dim, 3 * 2 * n + 2 * 4 * dim
+        _, f_bytes = rn.fwd_cost(rows, dim)
+        b_flops, b_bytes = rn.bwd_cost(rows, dim)
         f_bound = f_bytes / HBM_BYTES_PER_S * 1e3
         b_bound = b_bytes / HBM_BYTES_PER_S * 1e3
         say(f"  rmsnorm {what} ({rows}, {dim}) bf16, device ms with L2 "
@@ -3071,7 +3222,7 @@ def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
             plain_ms = time_ms(torch, lambda: ref.rmsnorm_bwd_ref(
                 x, scale, dy, eps))
             lib_ms = time_ms(torch, lib_bwd)
-            flops = 10.0 * n     # x^2, g, g x, dx and dy x r, per element
+            flops = b_flops      # x^2, g, g x, dx and dy x r, per element
             report["rmsnorm_bwd"] = dict(
                 route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
                 replaces="src/repro/kernels/ops.py:104",
@@ -3094,8 +3245,7 @@ def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
     ms = time_ms(torch, lambda: rn.rmsnorm_fwd(x, scale_main, eps))
     plain_ms = time_ms(torch, lambda: ref.rmsnorm_ref(x, scale_main, eps))
     lib_ms = time_ms(torch, lambda: F.rms_norm(x, (d,), w_lib, eps))
-    nbytes = 2 * x.numel() * 2 + 4 * d
-    flops = 4.0 * x.numel()
+    flops, nbytes = rn.fwd_cost(SEQ, d)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"])
     report["rmsnorm_fwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -3151,7 +3301,6 @@ def main() -> int:
              "CUDA card")
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
-    sys.path.insert(0, str(SRC))
     import torch.nn.functional as F
 
     from repro_torch.api import Session
@@ -3185,19 +3334,19 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
-    say(f"[1/21] card: {card}")
+    say(f"[1/22] card: {card}")
     say(f"      torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count={torch.cuda.device_count()}")
 
     # --------------------------------------------------------- 2. build
     t0 = time.monotonic()
     _build.library()
-    say(f"[2/21] build: {_build.library_path().name} in "
+    say(f"[2/22] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
     say_build(_build)
 
     # ------------------------------------------------ 3. kernels vs plain
-    say("[3/21] kernels vs plain versions")
+    say("[3/22] kernels vs plain versions")
     cfg = get_config("qwen3-1.7b", smoke=False)
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     report = {}
@@ -3286,7 +3435,7 @@ def main() -> int:
         f_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v,
                                                              causal=True))
         s_ms = time_ms(torch, sdpa_fwd(q, k, v))
-        flops, nbytes = flash_fwd_cost(B, SEQ, h, kv, hdim, True)
+        flops, nbytes = fa.fwd_cost(B, SEQ, SEQ, h, kv, hdim, True)
         bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
         say(f"  flash_attention_fwd @ B={B} S={SEQ} H={h} KV={kv} hd={hdim} "
             f"causal bf16: kernel {f_ms:.4f} ms per call, sdpa {s_ms:.4f} ms "
@@ -3302,7 +3451,7 @@ def main() -> int:
     plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True),
                        warmup=2, iters=20)
     lib_ms = time_ms(torch, sdpa_fwd(q, k, v))
-    flops, nbytes = flash_fwd_cost(1, SEQ, H, KV, hd, True)
+    flops, nbytes = fa.fwd_cost(1, SEQ, SEQ, H, KV, hd, True)
     bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
     report["flash_attention_fwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -3352,7 +3501,7 @@ def main() -> int:
         f_lib = time_ms(torch, sdpa_fwd(q, k, v, causal=causal))
         lib_dev, _ = device_profile(torch, sdpa_fwd(q, k, v, causal=causal),
                                     10)
-        flops, nbytes = flash_fwd_cost(B, SEQ, h, h, hdim, causal)
+        flops, nbytes = fa.fwd_cost(B, SEQ, SEQ, h, h, hdim, causal)
         bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
         say(f"  flash_attention_fwd @ B={B} S={SEQ} H={h} KV={h} hd={hdim} "
             f"{'causal' if causal else 'bidirectional'} bf16 ({who}): two "
@@ -3456,7 +3605,7 @@ def main() -> int:
     dot = do.transpose(1, 2)
     lib_ms = time_ms(torch, lambda: torch.autograd.grad(
         sdpa_out, (qt, kt, vt), dot, retain_graph=True))
-    flops, nbytes = flash_bwd_cost(B, SEQ, H, KV, hd, True)
+    flops, nbytes = fa.bwd_cost(B, SEQ, SEQ, H, KV, hd, True)
     bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
     report["flash_attention_bwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -3522,7 +3671,8 @@ def main() -> int:
                                        retain_graph=True)
         bwd_lib = time_ms(torch, sdpa_bwd)
         lib_dev, _ = device_profile(torch, sdpa_bwd, 5)
-        flops, nbytes = flash_bwd_cost(TRAIN_BATCH, SEQ, h, h, hdim, causal)
+        flops, nbytes = fa.bwd_cost(TRAIN_BATCH, SEQ, SEQ, h, h, hdim,
+                                     causal)
         bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
         say(f"  flash_attention_bwd @ B={TRAIN_BATCH} S={SEQ} H={h} KV={h} "
             f"hd={hdim} {'causal' if causal else 'bidirectional'} bf16 "
@@ -3590,20 +3740,13 @@ def main() -> int:
         m = re.search(r"\w+_kernel(<[^>]*>)?", name)
         return m.group(0) if m else name[:60]
 
-    def ssd_cost(b, s, h, p, g, n, chunk):
-        """The bound's products and bytes: x, y in bf16; dt, A; B, C."""
-        flops = ssd_flops(b, s, h, p, g, n, chunk)
-        nbytes = (2 * 2 * b * s * h * p + 4 * (b * s * h + h)
-                  + 2 * 2 * b * s * g * n)
-        return flops, nbytes
-
     # the main path's shapes (mamba2-1.3b prefill and train, zamba2-1.2b)
     # on views of one conv output, as the Mamba2 block hands them over:
     # device time by stage, host time per call
     ssd_dev_ms = []
     for b, s, h, p, g, n, chunk, _ in SSD_CASES[:3]:
         ins = ssd_inputs(b, s, h, p, g, n, torch.bfloat16, views=True)
-        flops, nbytes = ssd_cost(b, s, h, p, g, n, chunk)
+        flops, nbytes = ss.cost(b, s, h, p, g, n, chunk)
         bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
         _, ranked = device_profile(
             torch, lambda: ss.ssd_scan_fwd(*ins, chunk), 10)
@@ -3636,7 +3779,7 @@ def main() -> int:
     ms = time_ms(torch, lambda: ss.ssd_scan_fwd(*ins, chunk))
     plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*ins, chunk),
                        warmup=2, iters=10)
-    flops, nbytes = ssd_cost(b, s, h, p, g, n, chunk)
+    flops, nbytes = ss.cost(b, s, h, p, g, n, chunk)
     bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
     report["ssd_scan_fwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -3714,8 +3857,7 @@ def main() -> int:
     lib_ms = time_ms(torch, lambda: torch.min(ev, dim=1), warmup=20,
                      iters=200)
     n_es, m_es = ev.shape
-    nbytes = 8 * n_es * m_es + 8 * n_es + 4 * n_es     # ev; t; i
-    ops_es = float(n_es * m_es)                         # comparisons
+    ops_es, nbytes = es.cost(n_es, m_es)               # comparisons; bytes
     bound = max(nbytes / HBM_BYTES_PER_S, ops_es / PEAK_F64_FLOPS)
     report["event_select_fwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/event_select.cu",
@@ -3746,6 +3888,13 @@ def main() -> int:
     say_rate("kernel (fp64 comparisons)", ms, ops_es, bound * 1e3)
     del ev
     torch.cuda.synchronize()
+    # the host's own cost of each wrapper as the main path calls it: what
+    # the card path adds before a launch
+    with torch.no_grad():
+        for name, fn in wrapper_calls(torch, fa, ops, rn, dev):
+            say(f"  host time a call: {name}: "
+                f"{host_ms(torch, fn) * 1e3:.2f} us")
+    torch.cuda.synchronize()
 
     c = types.SimpleNamespace(
         torch=torch, dev=dev, gen=gen, ops=ops, Session=Session,
@@ -3770,10 +3919,10 @@ def main() -> int:
     L = cfg.n_layers
     n_norms = norm_count(cfg)
     session, params, launches = phase_prefill(
-        c, "4/21", "qwen3-1.7b",
+        c, "4/22", "qwen3-1.7b",
         counts(flash_attention_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "5/21", session, params,
+    add(phase_serve(c, "5/22", session, params,
                     counts(rmsnorm_fwd=n_norms), SERVE_VS_PREFILL_TOL))
     del session, params
     release(torch)
@@ -3781,16 +3930,16 @@ def main() -> int:
         flash_attention_fwd=L, flash_attention_bwd=L, rmsnorm_fwd=n_norms,
         rmsnorm_bwd=n_norms)}
     add(phase_train(
-        c, "6/21", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
+        c, "6/22", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
         attn_step_flops(cfg, TRAIN_BATCH, SEQ),
         "6 N per token plus the attention products"))
-    phase_parity(c, "7/21", "qwen3-1.7b",
+    phase_parity(c, "7/22", "qwen3-1.7b",
                  counts(flash_attention_fwd=2, flash_attention_bwd=2,
                         rmsnorm_fwd=4 * 2 + 1, rmsnorm_bwd=4 * 2 + 1),
                  PARITY_TOL)
 
     # --------------------------------------- 7b. checkpoint and resume
-    say("[7b/21] resume: SMOKE config, checkpoint_interval=2; 4 steps "
+    say("[7b/22] resume: SMOKE config, checkpoint_interval=2; 4 steps "
         "straight vs 2 steps + a new Session restoring at step 2 for 2 more")
     kw = dict(global_batch=4, seq_len=128)
     with tempfile.TemporaryDirectory() as dir_a, \
@@ -3815,24 +3964,25 @@ def main() -> int:
     L = mcfg.n_layers
     n_norms = 2 * L + 1                       # ln and gated norm, final
     session, params, launches = phase_prefill(
-        c, "8/21", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
+        c, "8/22", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "9/21", session, params,
+    add(phase_serve(c, "9/22", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
     release(torch)
     heads = ms_.expand * mcfg.d_model // ms_.head_dim
     # the SSD products, forward and backward (3x), in each layer
-    ssd_step = 3.0 * L * ssd_flops(TRAIN_BATCH, SEQ, heads, ms_.head_dim,
-                                   ms_.n_groups, ms_.d_state, ms_.chunk_size)
+    ssd_step = 3.0 * L * ss.cost(TRAIN_BATCH, SEQ, heads, ms_.head_dim,
+                                 ms_.n_groups, ms_.d_state,
+                                 ms_.chunk_size)[0]
     train_step_launches["mamba2-1.3b"] = counts(ssd_scan_fwd=L,
                                                 rmsnorm_fwd=n_norms,
                                                 rmsnorm_bwd=n_norms)
-    add(phase_train(c, "10/21", "mamba2-1.3b",
+    add(phase_train(c, "10/22", "mamba2-1.3b",
                     train_step_launches["mamba2-1.3b"], ssd_step,
                     "6 N per token plus the SSD products"))
-    phase_parity(c, "11/21", "mamba2-1.3b",
+    phase_parity(c, "11/22", "mamba2-1.3b",
                  counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1,
                         rmsnorm_bwd=2 * 2 + 1),
                  SSM_PARITY_TOL)
@@ -3843,47 +3993,50 @@ def main() -> int:
     n_shared = L // zcfg.shared_attn_every
     n_norms = 2 * L + 2 * n_shared + 1
     session, params, launches = phase_prefill(
-        c, "12/21", "zamba2-1.2b",
+        c, "12/22", "zamba2-1.2b",
         counts(ssd_scan_fwd=L, flash_attention_fwd=n_shared,
                rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "12/21", session, params,
+    add(phase_serve(c, "12/22", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
     release(torch)
 
     # --------------------------------------- 13. the fleet device engine
-    add(phase_fleet(c, "13/21"))
+    add(phase_fleet(c, "13/22"))
 
     # ------------------------------------- 14. the §VI-B live chaos loop
-    add(phase_live(c, "14/21"))
+    add(phase_live(c, "14/22"))
 
     # ------------------------- 15. the §III-§V model leg, fitted on the card
-    add(phase_models(c, "15/21", train_step_launches))
+    add(phase_models(c, "15/22", train_step_launches))
 
     # ------------------- 16. the recorded trace and the serving fleet
-    add(phase_trace_serving(c, "16/21"))
+    add(phase_trace_serving(c, "16/22"))
 
     # ------------------ 17. MoE and MLA: granite-moe and deepseek-v2-lite
     for arch in MOE_ARCHS:
-        add(phase_moe(c, "17/21", arch))
+        add(phase_moe(c, "17/22", arch))
 
     # ---------- 18. the dense and VLM archs: stablelm, qwen2-vl, yi, starcoder2
     for arch in DENSE_ARCHS:
-        add(phase_dense(c, "18/21", arch))
+        add(phase_dense(c, "18/22", arch))
 
     # ------------------------- 19. the audio encoder: hubert-xlarge, hd 80
-    add(phase_encoder(c, "19/21"))
+    add(phase_encoder(c, "19/22"))
 
     # ----------------------------------- 20. the paper's CIFAR-10 CNN zoo
-    phase_cnn(c, "20/21")
+    phase_cnn(c, "20/22")
     say(f"  ({time.monotonic() - t_start:.1f} s since the start)")
 
     # ---- 21. async PS, remat and the int8 KV cache at full qwen3 width
-    add(phase_async(c, "21/21"))
-    add(phase_remat(c, "21/21"))
-    add(phase_int8(c, "21/21"))
+    add(phase_async(c, "21/22"))
+    add(phase_remat(c, "21/22"))
+    add(phase_int8(c, "21/22"))
+
+    # ------------- 22. the dry run's accounting against phases 4 and 21
+    phase_dryrun(c, "22/22")
 
     # ------------------------------------------------------------ result
     kernels = []
@@ -3899,7 +4052,7 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
-    say(f"phases 1-21 in {time.monotonic() - t_start:.1f} s")
+    say(f"phases 1-22 in {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     print(json.dumps({"ok": True, "device": {

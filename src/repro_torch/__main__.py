@@ -10,8 +10,11 @@
     python -m repro_torch predict --gpu v100 --workers 4 [--provider azure]
     python -m repro_torch simulate --samples 65536 --engine jit
     python -m repro_torch chaos --scenario ps_crash --smoke [--no-live]
+    python -m repro_torch dryrun --arch qwen3-1.7b --shape train_4k
+    python -m repro_torch dryrun --sweep --jobs 3
 
-Runs on the CUDA card unless ``--device cpu`` is given.
+Runs on the CUDA card unless ``--device cpu`` is given; `dryrun` counts
+on the meta device and needs no device at all.
 """
 from __future__ import annotations
 
@@ -115,6 +118,16 @@ def build_parser():
     # simulated fleets and the live trainer runs inherit
     cli.add_resilience_args(c)
     cli.add_recalib_args(c)
+    # `dryrun` is dispatched before argparse in main(): its flags are owned
+    # by repro_torch.launch.dryrun (or repro_torch.launch.sweep under
+    # --sweep). Registered here for `--help` only.
+    sub.add_parser("dryrun", help="count (arch x shape) cells on the meta "
+                                  "device and price them on the production "
+                                  "meshes; --sweep fans out the full arch x "
+                                  "shape matrix with resumable artifacts; "
+                                  "flags forwarded to "
+                                  "repro_torch.launch.dryrun / .sweep",
+                   add_help=False)
     return p
 
 
@@ -301,7 +314,19 @@ def _cmd_chaos(args) -> int:
     return 0
 
 
+def _cmd_dryrun(rest: List[str]) -> int:
+    if "--sweep" in rest:
+        from repro_torch.launch import sweep
+        return sweep.main([a for a in rest if a != "--sweep"])
+    from repro_torch.launch import dryrun
+    dryrun.main(rest)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["dryrun"]:
+        return _cmd_dryrun(argv[1:])
     args = build_parser().parse_args(argv)
     try:
         return {"train": _cmd_train, "serve": _cmd_serve, "plan": _cmd_plan,

@@ -147,15 +147,12 @@ class Session:
     def n_tensors(self) -> int:
         """Variable count of the parameter tree — the per-tensor RPC term
         of the PS capacity law (Table III), which compression does NOT
-        shrink. Counted from a draw under `FakeTensorMode`, which builds
-        the tree's shapes and allocates no weights."""
+        shrink. Counted on `models.api.param_shapes`, which allocates no
+        weights."""
         if self._n_tensors is None:
-            from torch._subclasses.fake_tensor import FakeTensorMode
-
             from repro_torch.tree import flatten
-            with FakeTensorMode():
-                values, _ = model_api.init(self.cfg, torch.Generator())
-                self._n_tensors = sum(1 for _ in flatten(values))
+            self._n_tensors = sum(
+                1 for _ in flatten(model_api.param_shapes(self.cfg)))
         return self._n_tensors
 
     # ------------------------------------------------------ §III speed

@@ -9,8 +9,8 @@ plain Python. `RunConfig` is the reference's, field for field; its
 default `checkpoint_dir` keeps the reference's name (``repro_ckpt``) but
 lies in the temporary directory that ``TMPDIR`` names, as
 `default_checkpoint_dir` gives it; its `compilation_cache_dir` is
-accepted and ignored (nothing is jitted). Shape and mesh configs come
-with the slices that use them.
+accepted and ignored (nothing is jitted). `ShapeConfig`, the four
+dry-run shapes and `valid_cells` are the reference's.
 """
 from __future__ import annotations
 
@@ -183,6 +183,42 @@ class ModelConfig:
         per_expert = self._mlp_params(self.moe.expert_d_ff)
         inactive = moe_layers * (self.moe.n_experts - self.moe.top_k) * per_expert
         return total - inactive
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode | long_decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind in ("decode", "long_decode")
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "long_decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
+
+
+def valid_cells(cfg: ModelConfig):
+    """The (arch x shape) cells that are runnable for this architecture.
+
+    Skips (recorded, per docs/DESIGN.md §4): decode shapes for encoder-only archs;
+    long_500k for pure full-attention archs (needs sub-quadratic attention).
+    """
+    out = []
+    for s in ALL_SHAPES:
+        if not cfg.causal and s.kind in ("decode", "long_decode"):
+            continue  # encoder-only: no autoregressive step
+        if s.kind == "long_decode" and cfg.family not in ("ssm", "hybrid"):
+            continue  # full attention: sub-quadratic required at 500k
+        out.append(s)
+    return out
 
 
 def default_checkpoint_dir() -> str:

@@ -1,4 +1,6 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution shared by every entry point of the port, and the
+card's published peak rates, which every bound and roofline of the port
+(`chip_smoke.py`, `launch/dryrun.py`) reads."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -6,6 +8,13 @@ from typing import Optional, Union
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+
+# NVIDIA H100 SXM 80GB HBM3 at its 700 W limit, the data sheet's dense
+# rates: tensor-core bf16, CUDA-core fp32 and fp64; HBM3; NVLink 4 per
+# direction. A card set below 700 W runs below these under load.
+H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_NVLINK_BYTES_PER_S = 450e9
 
 
 class NoCudaDevice(RuntimeError):

@@ -6,6 +6,8 @@ ev ``(n, m)`` float64 (the fleet engine's type) or float32, contiguous,
 on the card. Returns ``(t, i)``: the row minimum ``(n,)`` in ev's type and
 the lowest column attaining it ``(n,)`` int32. All-inf rows give
 ``(inf, 0)``; a row holding a NaN gives ``(NaN, 0)``. Not differentiable.
+On the meta device (the dry run) the launcher checks and allocates, and
+launches nothing; `cost` gives a call's comparisons and bytes.
 """
 from __future__ import annotations
 
@@ -18,9 +20,14 @@ from repro_torch.kernels import _build
 _DTYPE_CODE = {torch.float64: 0, torch.float32: 1}
 
 
+def cost(n: int, m: int, itemsize: int = 8) -> Tuple[float, float]:
+    """(comparisons, bytes) of one call: ev read once, t and i written."""
+    return float(n * m), float(itemsize * n * m + itemsize * n + 4 * n)
+
+
 def event_select_fwd(ev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on the card."""
-    if not ev.is_cuda:
+    if ev.device.type not in ("cuda", "meta"):
         raise ValueError("event_select_fwd launches a CUDA kernel: ev must "
                          "lie on a CUDA device")
     if ev.dtype not in _DTYPE_CODE:
@@ -32,6 +39,8 @@ def event_select_fwd(ev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     n, m = ev.shape
     t = torch.empty(n, dtype=ev.dtype, device=ev.device)
     i = torch.empty(n, dtype=torch.int32, device=ev.device)
+    if ev.is_meta:
+        return t, i
     lib = _build.library()
     with torch.cuda.device(ev.device):
         stream = torch.cuda.current_stream(ev.device).cuda_stream

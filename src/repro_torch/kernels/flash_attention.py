@@ -19,6 +19,12 @@ pointers and batch, sequence and head strides that are multiples of 8
 elements; a view such as q, k, v cut from one fused projection meets both
 and is read without a copy. The fp32 kernels load with plain loads and take
 any strides with a contiguous head_dim.
+
+On the meta device (the dry run, `launch/dryrun.py`) each launcher
+checks what the kernel takes and allocates its outputs as on the card,
+and launches nothing; `fwd_cost` and `bwd_cost` give the products and
+bytes of a call, which the dry run counts and `chip_smoke.py` bounds a
+call by.
 """
 from __future__ import annotations
 
@@ -56,14 +62,40 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Sq={Sq}, Sk={k.shape[1]}")
 
 
+def _pairs(sq: int, sk: int, causal: bool) -> int:
+    """The (query, key) pairs the mask keeps (causal needs Sq == Sk)."""
+    return sq * (sq + 1) // 2 if causal else sq * sk
+
+
+def fwd_cost(b: int, sq: int, sk: int, h: int, kv: int, hd: int,
+             causal: bool, itemsize: int = 2) -> Tuple[float, float]:
+    """(products, bytes) of one forward call: QK^T and PV over the pairs
+    the mask keeps; q, k, v and out read or written once in the input
+    dtype (``itemsize`` bytes), lse in fp32."""
+    flops = 4.0 * b * h * hd * _pairs(sq, sk, causal)
+    nbytes = itemsize * b * hd * (2 * sq * h + 2 * sk * kv) + 4 * b * h * sq
+    return flops, float(nbytes)
+
+
+def bwd_cost(b: int, sq: int, sk: int, h: int, kv: int, hd: int,
+             causal: bool, itemsize: int = 2) -> Tuple[float, float]:
+    """(products, bytes) of one backward call: the five products (q.k,
+    dO.v, dS K, dS^T Q, P^T dO) over the pairs the mask keeps; q, out, dO
+    and dq, k, v, dk and dv once in the input dtype, lse in fp32."""
+    flops = 10.0 * b * h * hd * _pairs(sq, sk, causal)
+    nbytes = itemsize * b * hd * (4 * sq * h + 4 * sk * kv) + 4 * b * h * sq
+    return flops, float(nbytes)
+
+
 def _check_launch(what: str, q: torch.Tensor, *others: torch.Tensor):
     """Device, dtype and layout rules of both kernels; raises on what they
     do not take (there is no fallback). Returns the batch, sequence and
     head strides of each tensor, in order, as the C entry points take
-    them."""
+    them. Meta tensors (the dry run) are held to the same rules."""
     ts = (q, *others)
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in others):
+    if dev.type not in ("cuda", "meta") or any(t.device != dev
+                                                 for t in others):
         raise ValueError(f"{what} launches a CUDA kernel: its tensors must "
                          "lie on one CUDA device")
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in others):
@@ -104,6 +136,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        return out, lse
     err = _launch(
         _build.library().repro_flash_attention_fwd, q.device, q.data_ptr(),
         k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -143,6 +177,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KV, hd), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Sk, KV, hd), dtype=v.dtype, device=q.device)
+    if q.is_meta:
+        return dq, dk, dv
     err = _launch(
         _build.library().repro_flash_attention_bwd, q.device, q.data_ptr(),
         k.data_ptr(), v.data_ptr(), do.data_ptr(), out.data_ptr(),

@@ -28,10 +28,17 @@ what the forward saves is dropped when it returns.
 incremented only where a kernel was launched, so a run can show that its
 path went through the kernels (``chip_smoke.py`` zeroes the counts with
 `reset_launches` before the main path and reads them after).
+
+On the meta device (the dry run, `launch/dryrun.py`) every op takes the
+same path as on the card, through the same autograd Functions, so the
+backward and a checkpoint's recompute are reached as they are there; the
+launchers allocate their outputs and launch nothing. Such a call adds
+nothing to ``launches``: it adds one call and the kernel's operations and
+bytes (each wrapper's cost function) to ``tally`` instead.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -47,16 +54,43 @@ launches: Dict[str, int] = {"flash_attention_fwd": 0,
                             "event_select_fwd": 0}
 
 
+#: the dry run's count by kernel: [calls on the meta device, operations,
+#: bytes]
+tally: Dict[str, List[float]] = {name: [0, 0.0, 0.0] for name in launches}
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def reset_tally() -> None:
+    for name in tally:
+        tally[name] = [0, 0.0, 0.0]
+
+
+def _tally(name: str, cost: Tuple[float, float]) -> None:
+    row = tally[name]
+    row[0] += 1
+    row[1] += cost[0]
+    row[2] += cost[1]
+
+
+def _flash_cost(cost, q, k, causal):
+    B, Sq, H, hd = q.shape
+    return cost(B, Sq, k.shape[1], H, k.shape[2], hd, causal,
+                q.element_size())
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        launches["flash_attention_fwd"] += 1
+        if q.is_meta:
+            _tally("flash_attention_fwd",
+                   _flash_cost(fa.fwd_cost, q, k, causal))
+        else:
+            launches["flash_attention_fwd"] += 1
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -68,7 +102,11 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse,
                                             do.contiguous(),
                                             causal=ctx.causal)
-        launches["flash_attention_bwd"] += 1
+        if q.is_meta:
+            _tally("flash_attention_bwd",
+                   _flash_cost(fa.bwd_cost, q, k, ctx.causal))
+        else:
+            launches["flash_attention_bwd"] += 1
         return dq, dk, dv, None
 
 
@@ -88,7 +126,11 @@ class _RMSNorm(torch.autograd.Function):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
         out = rn.rmsnorm_fwd(x, scale, eps)
-        launches["rmsnorm_fwd"] += 1
+        if x.is_meta:
+            _tally("rmsnorm_fwd", rn.fwd_cost(x.numel() // x.shape[-1],
+                                              x.shape[-1], x.element_size()))
+        else:
+            launches["rmsnorm_fwd"] += 1
         return out
 
     @staticmethod
@@ -98,7 +140,11 @@ class _RMSNorm(torch.autograd.Function):
         # or two
         dx, dscale = rn.rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps,
                                     need_dscale=ctx.needs_input_grad[1])
-        launches["rmsnorm_bwd"] += 1
+        if x.is_meta:
+            _tally("rmsnorm_bwd", rn.bwd_cost(x.numel() // x.shape[-1],
+                                              x.shape[-1], x.element_size()))
+        else:
+            launches["rmsnorm_bwd"] += 1
         return dx, dscale, None
 
 
@@ -114,7 +160,11 @@ class _SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
         y = ss.ssd_scan_fwd(x, dt, A, B, C, chunk)
-        launches["ssd_scan_fwd"] += 1
+        if x.is_meta:
+            _tally("ssd_scan_fwd", ss.cost(*x.shape, *B.shape[2:], chunk,
+                                           x.element_size()))
+        else:
+            launches["ssd_scan_fwd"] += 1
         ctx.save_for_backward(x, dt, A, B, C)
         ctx.chunk = chunk
         return y
@@ -148,5 +198,8 @@ def event_select(ev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if ev.device.type == "cpu":
         return ref.event_select_ref(ev)
     t, i = es.event_select_fwd(ev)
-    launches["event_select_fwd"] += 1
+    if ev.is_meta:
+        _tally("event_select_fwd", es.cost(*ev.shape, ev.element_size()))
+    else:
+        launches["event_select_fwd"] += 1
     return t, i

@@ -7,6 +7,10 @@ x ``(..., d)`` in fp32 or bf16, contiguous; scale ``(d,)`` fp32. The
 output has x's shape and dtype; the backward's dx too, and its dscale is
 fp32. d is a multiple of a 16-byte vector (8 bf16 or 4 fp32 values) and
 at most 2048 such vectors (starcoder2-15b's 6144 in fp32 is 1536).
+
+On the meta device (the dry run) the launchers check what the kernels
+take and allocate their outputs, and launch nothing; `fwd_cost` and
+`bwd_cost` give a call's operations and bytes.
 """
 from __future__ import annotations
 
@@ -20,9 +24,24 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_VECTORS = 2048  # the widest row the kernels take, in 16-byte vectors
 
 
+def fwd_cost(rows: int, d: int, itemsize: int = 2) -> Tuple[float, float]:
+    """(operations, bytes) of one forward call: x read and the output
+    written once in x's dtype, the fp32 scale read once."""
+    n = rows * d
+    return 4.0 * n, float(2 * itemsize * n + 4 * d)
+
+
+def bwd_cost(rows: int, d: int, itemsize: int = 2) -> Tuple[float, float]:
+    """(operations, bytes) of one backward call: x and dy read and dx
+    written in x's dtype, the scale read and dscale written in fp32."""
+    n = rows * d
+    return 10.0 * n, float(3 * itemsize * n + 2 * 4 * d)
+
+
 def _check(x: torch.Tensor, scale: torch.Tensor, what: str) -> int:
-    """Refuse what the kernels do not take; returns d."""
-    if not (x.is_cuda and scale.device == x.device):
+    """Refuse what the kernels do not take; returns d. Meta tensors (the
+    dry run) are held to the same rules."""
+    if x.device.type not in ("cuda", "meta") or scale.device != x.device:
         raise ValueError(f"{what} launches a CUDA kernel: x and scale must "
                          "lie on one CUDA device")
     if x.dtype not in _DTYPE_CODE or scale.dtype != torch.float32:
@@ -48,6 +67,8 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
     """Launch the forward kernel on the card."""
     d = _check(x, scale, "rmsnorm_fwd")
     out = torch.empty_like(x)
+    if x.is_meta:
+        return out
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -70,6 +91,10 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"dy must be a contiguous, 16-byte aligned "
                          f"{tuple(x.shape)} {x.dtype} tensor beside x")
     rows, code = x.numel() // d, _DTYPE_CODE[x.dtype]
+    if x.is_meta:
+        return torch.empty_like(x), (torch.empty(d, dtype=torch.float32,
+                                                 device=x.device)
+                                     if need_dscale else None)
     lib = _build.library()
     with torch.cuda.device(x.device):
         ws_bytes = lib.repro_rmsnorm_bwd_workspace_bytes(rows, d, code)

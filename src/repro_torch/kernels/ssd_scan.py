@@ -13,10 +13,16 @@ it. bf16 runs three chunk-parallel stages on `wgmma` with TMA loads, which
 pass the chunk states through a device workspace this launcher allocates
 (``repro_ssd_scan_workspace_bytes`` sizes it); fp32 runs one kernel of
 fp32 FMAs.
+
+On the meta device (the dry run) the launcher checks what the kernel
+takes and allocates y, and launches nothing (nor sizes the workspace);
+`cost` gives a call's products and bytes.
 """
 from __future__ import annotations
 
 import torch
+
+from typing import Tuple
 
 from repro_torch.kernels import _build
 
@@ -48,12 +54,27 @@ def check_shapes(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return chunk
 
 
+def cost(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
+         itemsize: int = 2) -> Tuple[float, float]:
+    """(products, bytes) of one call: per chunk of L tokens the causal
+    halves of C.B^T (once per group) and of scores.x (per head), plus C.S
+    and the state update (per head); x and y in x's dtype, dt and A in
+    fp32, B and C in x's dtype, each once."""
+    L = min(chunk, s)
+    pairs = L * (L + 1)            # 2 x the causal (l, m) pairs
+    flops = b * (s // L) * (g * n * pairs + h * (p * pairs + 4 * L * n * p))
+    nbytes = (2 * itemsize * b * s * h * p + 4 * (b * s * h + h)
+              + 2 * itemsize * b * s * g * n)
+    return float(flops), float(nbytes)
+
+
 def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
     """Launch the kernel on the card. Returns y (b,s,h,p) in x's dtype."""
     check_shapes(x, dt, A, B, C, chunk)
     ins = (x, dt, A, B, C)
-    if not (x.is_cuda and all(t.device == x.device for t in ins)):
+    if x.device.type not in ("cuda", "meta") or any(t.device != x.device
+                                                     for t in ins):
         raise ValueError("ssd_scan_fwd launches a CUDA kernel: its tensors "
                          "must lie on one CUDA device")
     if (x.dtype not in _DTYPE_CODE or B.dtype != x.dtype
@@ -79,6 +100,8 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"their strides must be multiples of {vec} and "
                          "their data 16-byte aligned")
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    if x.is_meta:
+        return y
     lib = _build.library()
     code = _DTYPE_CODE[x.dtype]
     work_bytes = lib.repro_ssd_scan_workspace_bytes(code, b, s, h, p, n)

@@ -1,12 +1,14 @@
 """Step factories of the port — the twins of the JAX package's
 `launch/steps.py`: `make_train_step` (with `TrainState`,
 `init_residual`, `init_train_state`), `make_prefill_step` and
-`make_serve_step`.
+`make_serve_step`; and the shardings the dry run prices from the models'
+logical axes (`param_shardings`, `opt_shardings` with ZeRO-1,
+`batch_shardings`, `train_state_specs`, `train_state_shardings`).
 
 PyTorch runs eagerly, so a step is the plain function; there is nothing
-to jit and no sharding to derive on one card. On the card the train
-step's forward runs the flash-attention and RMSNorm kernels and its
-backward the flash-attention backward kernel (`kernels.ops`).
+to jit, and one card partitions nothing by the shardings. On the card
+the train step's forward runs the flash-attention and RMSNorm kernels
+and its backward the flash-attention backward kernel (`kernels.ops`).
 """
 from __future__ import annotations
 
@@ -14,8 +16,9 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.device import DeviceLike
+from repro_torch.dist import sharding as sh
 from repro_torch.dist.compression import ErrorFeedback, payload_bytes
 from repro_torch.models import api
 from repro_torch.optim import (clip_by_global_norm, cosine_warmup,
@@ -34,6 +37,109 @@ class TrainState(NamedTuple):
     residual: Any = ()
 
 
+# ---------------------------------------------------------------------------
+# sharding derivation
+# ---------------------------------------------------------------------------
+def param_shardings(mesh, cfg: ModelConfig, rules=sh.MEGATRON_RULES):
+    shapes, axes = api.param_specs(cfg)
+    return sh.tree_shardings(mesh, axes, rules, shapes)
+
+
+def _zero1(mesh, sharding: sh.NamedSharding, shape, rules):
+    """Additionally shard the first unsharded divisible dim over 'data'
+    (ZeRO-1: optimizer state partitioned across the data axis)."""
+    if "data" not in mesh.axis_names:
+        return sharding
+    spec = list(sharding.spec) + [None] * (len(shape) - len(sharding.spec))
+    used = {a for e in spec if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))}
+    if "data" in used:
+        return sharding
+    sizes = dict(mesh.shape)
+    dsize = sizes["data"]
+    for i, e in enumerate(spec):
+        if e is None and shape[i] % dsize == 0 and shape[i] >= dsize:
+            spec[i] = "data"
+            return sh.NamedSharding(mesh, sh.PartitionSpec(*spec))
+        if e is not None:
+            axes = e if isinstance(e, tuple) else (e,)
+            cur = 1
+            for a in axes:
+                cur *= sizes[a]
+            if shape[i] % (cur * dsize) == 0:
+                spec[i] = tuple(axes) + ("data",)
+                return sh.NamedSharding(mesh, sh.PartitionSpec(*spec))
+    return sharding
+
+
+def opt_shardings(mesh, cfg: ModelConfig, run: RunConfig, p_shardings,
+                  rules=sh.MEGATRON_RULES):
+    """Optimizer-state shardings: mirror params, optionally ZeRO-1 over data.
+
+    Opt state is () (sgd) or {"m": params-like[, "v": params-like
+    [, "w32": params-like]]}.
+    """
+    opt = make_optimizer(run.optimizer, run.lr, run.weight_decay,
+                         master=run.master_weights)
+    opt_shape = opt.init(_live_param_shapes(cfg, run))
+    if not opt_shape:
+        return opt_shape
+
+    def map_like(subtree):
+        return tree_map(
+            lambda sdg, shp: (_zero1(mesh, sdg, tuple(shp.shape), rules)
+                              if run.zero1 else sdg),
+            p_shardings, subtree)
+
+    return {k: map_like(v) for k, v in opt_shape.items()}
+
+
+def batch_shardings(mesh, cfg: ModelConfig, shape: ShapeConfig,
+                    rules=sh.MEGATRON_RULES):
+    specs, axes = api.batch_specs(cfg, shape)
+    return sh.tree_shardings(mesh, axes, rules, specs), specs
+
+
+def _live_param_shapes(cfg: ModelConfig, run: RunConfig):
+    """Meta tensors of the LIVE params (bf16 when master_weights)."""
+    shapes = api.param_shapes(cfg)
+    if run.master_weights:
+        shapes = tree_map(
+            lambda s: torch.empty(s.shape, device="meta",
+                                  dtype=(torch.bfloat16
+                                         if s.dtype == torch.float32
+                                         else s.dtype)), shapes)
+    return shapes
+
+
+def train_state_specs(cfg: ModelConfig, run: RunConfig) -> TrainState:
+    """The train state without allocation: params, optimizer state and
+    residual as meta tensors; the step is the host's 0-d counter, as the
+    train step keeps it."""
+    pshapes = _live_param_shapes(cfg, run)
+    opt = make_optimizer(run.optimizer, run.lr, run.weight_decay,
+                         master=run.master_weights)
+    res_shapes = ()
+    if run.grad_compression != "none":
+        res_shapes = tree_map(lambda s: torch.empty(
+            s.shape, dtype=torch.float32, device="meta"), pshapes)
+    return TrainState(pshapes, opt.init(pshapes),
+                      torch.zeros((), dtype=torch.int32), res_shapes)
+
+
+def train_state_shardings(mesh, cfg: ModelConfig, run: RunConfig,
+                          rules=sh.MEGATRON_RULES) -> TrainState:
+    ps = param_shardings(mesh, cfg, rules)
+    os_ = opt_shardings(mesh, cfg, run, ps, rules)
+    scalar = sh.NamedSharding(mesh, sh.PartitionSpec())
+    # the residual is params-shaped (f32), so it shards exactly like params
+    rs = ps if run.grad_compression != "none" else ()
+    return TrainState(ps, os_, scalar, rs)
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
 def _value_and_grad(cfg: ModelConfig, params, batch):
     """(loss, grads) of `api.loss_fn` at ``params``; the grads have the
     params' dtypes."""
