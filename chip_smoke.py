@@ -107,7 +107,7 @@ Phases, each of which exits non-zero on failure:
             numbers. (a) `make_train_step` at full width (bf16) for
             qwen3-1.7b and mamba2-1.3b over 8 (B, S) points from (1, 512)
             to (2, 2048) (phase 3 holds the flash and SSD kernels at each
-            of these shapes), 2 warm-up steps, the median of 5 steps timed
+            of these shapes), 2 warm-up steps, the median of 3 steps timed
             by CUDA events beside their median wall time, and one
             profiled step's device busy time; each point launching the
             kernels a step as phases 6 and 10 predict; rows {arch, gpu,
@@ -222,11 +222,29 @@ Phases, each of which exits non-zero on failure:
             measured, and a roofline (the counted FLOPs and bytes over the
             card's peaks) whose larger term the measured busy time is not
             below (0.95 x); no new step runs on the card.
+23. the paper's table and figure drivers on the card, in this process:
+            `repro_torch.bench.run.main` with `lm_speed_models` (every
+            SMOKE arch's forward loss: the flash forward at hd 32, causal
+            and hubert's bidirectional, RMSNorm and the SSD scan),
+            `fig2_stability` (FIG2_STEPS SGD steps, so the profiler's
+            0.5 s warm-up leaves windows), `fig10_replacement`,
+            `fig5_checkpoint` (the zoo drawn on the card and saved) and
+            `serving`: exit 0, finite rows, a row per arch, fig2's speed
+            above 0, `serve_wave`'s smoke and fig10's cold > warm; then
+            `examples.quickstart` and `examples.transient_train` train on
+            the card (the flash and RMSNorm kernels both ways; its loss
+            assert holds); the phase launches the flash forward and
+            backward, both RMSNorm kernels and the SSD scan; fig5's sizes
+            and serving's host rows equal CPU runs'; every SMOKE arch's
+            logits on lm_speed's batch, the card's fp32 and bf16 forwards
+            against an fp32 CPU forward of the same weights (phase 3
+            holds each kernel at these shapes against its plain
+            version).
 
 Then one JSON line per the kernels (launches summed over the prefill,
 serve, train, fleet, live, model-leg, trace/serving, MoE, dense, VLM,
-encoder, async, remat and int8 phases, each counted from 0), the card line
-again, and the result line
+encoder, async, remat, int8 and bench phases, each counted from 0), the
+card line again, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the repository beside it, it fails
 before printing any result.
@@ -306,7 +324,8 @@ SSD_TOL = {"bfloat16": (2e-2, 1e-2), "float32": (5e-4, 5e-4)}
 # (b, s, h, p, g, n, chunk, dtype): the mamba2-1.3b prefill and train
 # shapes, zamba2-1.2b's, grouped B/C, one short ragged tile, many of the
 # bf16 kernels' 128-token chunks with a ragged tail, a sequence shorter
-# than one, grouped B/C at the SMOKE widths (n=16, p=32), fp32
+# than one, grouped B/C at the SMOKE widths (n=16, p=32), phase 23's
+# SMOKE mamba2 and zamba2 forwards (one group, one 32-token chunk), fp32
 SSD_CASES = [(1, 2048, 64, 64, 1, 128, 256, "bfloat16"),
              (2, 2048, 64, 64, 1, 128, 256, "bfloat16"),
              (1, 2048, 64, 64, 1, 64, 256, "bfloat16"),
@@ -315,6 +334,7 @@ SSD_CASES = [(1, 2048, 64, 64, 1, 128, 256, "bfloat16"),
              (1, 2000, 8, 64, 1, 128, 250, "bfloat16"),
              (2, 100, 8, 64, 2, 64, 100, "bfloat16"),
              (2, 640, 8, 32, 4, 16, 128, "bfloat16"),
+             (2, 32, 8, 32, 1, 16, 32, "bfloat16"),
              (2, 128, 4, 32, 2, 16, 64, "float32"),
              (1, 200, 8, 64, 2, 64, 200, "float32")]
 # x, B and C as views of one conv output, as `models.ssm.mamba2_block`
@@ -1522,7 +1542,8 @@ SPEED_HELD = (2, 1024)
 # version, as it holds the flash kernels at qwen3's grid shapes
 SPEED_SSD_CASES = [(b, s, 64, 64, 1, 128, min(256, s), "bfloat16")
                    for b, s in SPEED_GRID if s != SEQ]
-STEP_WARMUP, STEP_TIMED = 2, 5
+# (3 timed steps a point keep the 23 phases well inside the time limit)
+STEP_WARMUP, STEP_TIMED = 2, 3
 # phase 15 (§IV): the saved trees, (arch, SMOKE?, depth or None) from
 # 1.4 MB to 2.05 GB of fp32 params, each saved CKPT_SAVES times, then the
 # full-width qwen3-1.7b params (6.88 GB) once as the held-out point; under
@@ -3063,6 +3084,217 @@ def phase_int8(c, tag: str) -> dict:
     return launches
 
 
+# the bench modules phase 23 runs on the card through `bench.run.main`
+BENCH_ON_CARD = ("lm_speed_models", "fig2_stability", "fig10_replacement",
+                 "fig5_checkpoint", "serving")
+# fig2's steps on the card: the profiler discards the steps within
+# warmup_seconds (0.5 s) of the first record, and the reference's 30 SGD
+# steps of bench_tiny take well under that on the card (reference caveat 9)
+FIG2_STEPS = 600
+QUICKSTART_STEPS = 20
+TRANSIENT_STEPS = 60
+# the index's crc32s and the metadata's creation time are written as
+# decimal digits: two draws of the same tree differ by those digits
+CKPT_DIGIT_BYTES = 32
+# each SMOKE arch's logits on lm_speed_models's batch against the CPU's
+# fp32 forward of the same weights. The card's fp32 forward (the kernels'
+# fp32 paths) is held at every token to FORWARD_PARITY_TOL of max |logit|.
+# Its bf16 forward, the path lm_speed_models times, is held by the median
+# over tokens of each token's max |diff| / max |logit|: a bf16 rounding
+# may flip an MoE route (the top k of near-tied bf16 router logits),
+# which moves that token's logits by O(1) (granite-moe's worst token sat
+# 0.916 of max |logit| from the CPU's on an H100; PERF.md §6), while the
+# other tokens stay at bf16's rounding distance, 5e-3 to 2e-2 on the CPU
+SMOKE_BF16_MEDIAN_TOL = 5e-2
+
+
+@contextlib.contextmanager
+def recording(mod, name: str, seen: dict):
+    """While open, ``mod.<name>`` keeps in ``seen[mod.__name__]`` what
+    each call returns."""
+    fn = getattr(mod, name)
+
+    def recorded(*a, **kw):
+        seen[mod.__name__] = fn(*a, **kw)
+        return seen[mod.__name__]
+    setattr(mod, name, recorded)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+def bench_rows(text: str) -> dict:
+    """``name -> (value, derived)`` of the driver's CSV rows."""
+    rows = {}
+    for line in text.splitlines():
+        if line.startswith("#") or line == "name,value,derived":
+            continue
+        name, value, derived = line.split(",", 2)
+        rows[name] = (float(value), derived)
+    return rows
+
+
+def phase_bench(c, tag: str) -> dict:
+    """Phase 23, the paper's table and figure drivers and the examples on
+    the card. `bench.run.main` runs BENCH_ON_CARD in this process
+    (`lm_speed_models`: every SMOKE arch's forward loss; `fig2_stability`
+    at FIG2_STEPS SGD steps; `fig10_replacement`; `fig5_checkpoint`: the
+    20 zoo trees drawn on the card and saved; `serving`); it must return
+    0 with every row finite, a row per arch and both summary rows of
+    `lm_speed`, fig2's speed above 0, `serve_wave`'s smoke passing and
+    fig10's `cold>warm=1`. Then `examples.quickstart` (QUICKSTART_STEPS)
+    and `examples.transient_train` (TRANSIENT_STEPS, whose own assert
+    holds that the loss falls) train on the card. The phase's launches of
+    the flash forward and backward, both RMSNorm kernels and the SSD scan
+    are each above 0. Held against CPU runs: fig5's S_d per tree exactly
+    and S_c to the digits of its crc32s and creation time
+    (CKPT_DIGIT_BYTES); serving's `serve_wave` and `plan` rows; each
+    SMOKE arch's logits on lm_speed's batch (`smoke_logits_held`).
+    Returns the phase's launches."""
+    import functools
+    import io
+
+    from repro_torch.bench import fig2_stability, fig5_checkpoint, serving
+    from repro_torch.bench import run as bench_run
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.examples import quickstart, transient_train
+
+    torch = c.torch
+    t_phase = time.monotonic()
+    release(torch)
+    say(f"[{tag}] bench on the card: {', '.join(BENCH_ON_CARD)} through "
+        f"`bench.run.main` (fig2 at {FIG2_STEPS} steps), then quickstart "
+        f"({QUICKSTART_STEPS} steps) and transient_train ({TRANSIENT_STEPS} "
+        "steps)")
+    seen = {}
+    out = io.StringIO()
+    c.ops.reset_launches()
+    fig2_run = fig2_stability.run
+    fig2_stability.run = functools.partial(fig2_run, steps=FIG2_STEPS)
+    try:
+        with recording(fig5_checkpoint, "measure", seen), \
+                contextlib.redirect_stdout(out):
+            rc = bench_run.main(["--only", ",".join(BENCH_ON_CARD)])
+    finally:
+        fig2_stability.run = fig2_run
+    t_main = time.monotonic() - t_phase
+    for line in out.getvalue().splitlines():
+        say(f"  {line}")
+    if rc != 0:
+        fail(f"bench.run.main returned {rc}")
+    rows = bench_rows(out.getvalue())
+    bad = [name for name, (v, _) in rows.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"bench rows with a value that is not finite: {bad}")
+    want = {f"lm_speed/{a}" for a in ARCH_IDS} | {
+        "lm_speed/corr_step_time_vs_flops", "lm_speed/kfold_mae_ols_vs_svr"}
+    if not want <= set(rows):
+        fail(f"lm_speed rows missing: {sorted(want - set(rows))}")
+    speed, cov = rows[f"fig2/real_{c.dev.type}_speed_steps_per_s"]
+    say(f"  fig2 ran {FIG2_STEPS} steps: {speed} steps/s, {cov}")
+    if not speed > 0:
+        fail("fig2's steps after the profiler's warm-up left no window")
+    if "smoke=pass" not in rows["serving/serve_wave"][1]:
+        fail("serve_wave's smoke gates failed on the card")
+    if "cold>warm=1" not in rows["fig10/real/resnet15_cold_s"][1]:
+        fail("fig10's cold start was not slower than the warm restart")
+
+    t0 = time.monotonic()
+    quickstart.main(["--steps", str(QUICKSTART_STEPS)])
+    try:
+        transient_train.main(["--steps", str(TRANSIENT_STEPS)])
+    except AssertionError as e:
+        fail(f"transient_train: {e}")
+    torch.cuda.synchronize()
+    launches = dict(c.ops.launches)
+    say(f"  examples in {time.monotonic() - t0:.1f} s; the phase's launches "
+        f"{launches}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
+                 "rmsnorm_bwd", "ssd_scan_fwd"):
+        if launches[name] == 0:
+            fail(f"phase 23 never launched {name}")
+
+    # card against the CPU
+    t0 = time.monotonic()
+    card5 = seen[fig5_checkpoint.__name__]
+    cpu5 = fig5_checkpoint.measure(repeats=1, remote=False, device="cpu")
+    for g, w in zip(card5, cpu5):
+        if g.model != w.model or g.s_d != w.s_d or \
+                abs(g.s_c - w.s_c) > CKPT_DIGIT_BYTES:
+            fail(f"fig5 {g.model}: card s_d {g.s_d} s_c {g.s_c} against "
+                 f"the CPU's {w.model} {w.s_d} {w.s_c}")
+    say(f"  fig5: {len(card5)} trees, s_d equal to the CPU's, s_c within "
+        f"{max(abs(g.s_c - w.s_c) for g, w in zip(card5, cpu5)):.0f} bytes")
+    cpu_serving = {r["name"]: (r["value"], r["derived"].replace(",", ";"))
+                   for r in serving.run(device="cpu")}
+    for name in ("serving/serve_wave", "serving/plan"):
+        if rows[name] != cpu_serving[name]:
+            fail(f"{name}: the card's row {rows[name]} differs from the "
+                 f"CPU's {cpu_serving[name]}")
+    say(f"  serving's serve_wave and plan rows equal the CPU's "
+        f"({time.monotonic() - t0:.1f} s)")
+    smoke_logits_held(c)
+    say(f"  bench in {t_main:.1f} s, phase in "
+        f"{time.monotonic() - t_phase:.1f} s")
+    release(torch)
+    return launches
+
+
+def smoke_logits_held(c) -> None:
+    """Every SMOKE arch's forward on `lm_speed_models`'s batch (B, S),
+    weights drawn on the CPU from seed 0, against the CPU's fp32 forward
+    of the same weights (the plain versions): the card's fp32 logits
+    within FORWARD_PARITY_TOL of max |logit| at every token, its bf16
+    logits (the kernels at lm_speed's shapes) within
+    SMOKE_BF16_MEDIAN_TOL at the median token."""
+    from repro_torch.bench import lm_speed_models
+    from repro_torch.configs import ARCH_IDS, TRAIN_4K
+
+    torch, api = c.torch, c.model_api
+    t0 = time.monotonic()
+    dists = []
+
+    def fp32(t):
+        return t.float() if t.is_floating_point() else t
+
+    def forward(cfg, params, batch):
+        with torch.no_grad():
+            return api.prefill(
+                c.tree_map(lambda t: t.to(c.dev), params), cfg,
+                {k: v.to(c.dev) for k, v in batch.items()}).float().cpu()
+    for arch in ARCH_IDS:
+        cfg = c.get_config(arch, smoke=True)
+        params, _ = api.init(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        batch = api.make_batch(cfg, TRAIN_4K,
+                               batch_override=lm_speed_models.B,
+                               seq_override=lm_speed_models.S, device="cpu")
+        cfg32, params32 = cfg.with_(dtype="float32"), c.tree_map(fp32, params)
+        batch32 = {k: fp32(v) for k, v in batch.items()}
+        with torch.no_grad():
+            want = api.prefill(params32, cfg32, batch32)
+        scale = want.abs().max()
+        got32 = forward(cfg32, params32, batch32)
+        got16 = forward(cfg, params, batch)
+        rel32 = float((got32 - want).abs().max() / scale)
+        tokens = (got16 - want).abs().amax(dim=-1) / scale
+        rel16, worst16 = float(tokens.median()), float(tokens.max())
+        dists.append(f"{arch} {rel32:.2e} / {rel16:.2e} ({worst16:.2e})")
+        if not (bool(torch.isfinite(got16).all())
+                and rel32 <= FORWARD_PARITY_TOL
+                and rel16 <= SMOKE_BF16_MEDIAN_TOL):
+            fail(f"{arch}: the card's SMOKE logits against the CPU's fp32 "
+                 f"forward: fp32 {rel32:.3e} of max |logit| (tol "
+                 f"{FORWARD_PARITY_TOL}), bf16 {rel16:.3e} at the median "
+                 f"token (tol {SMOKE_BF16_MEDIAN_TOL})")
+    say("  SMOKE logits against the CPU's fp32 forward, max|diff|/max|CPU|: "
+        "the card's fp32 at the worst token / bf16 at the median (worst) "
+        f"token: {', '.join(dists)} (tol {FORWARD_PARITY_TOL} / "
+        f"{SMOKE_BF16_MEDIAN_TOL}; {time.monotonic() - t0:.1f} s)")
+    release(torch)
+
+
 def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
     """Phase 3's RMSNorm part. The forward and backward kernels held
     against the plain versions at every width the port normalises (the
@@ -3108,7 +3340,14 @@ def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
             # a decode step and the fp32 depth-2 forward
             (SEQ, 1280, "bfloat16"), (SEQ, 6144, "bfloat16"),
             (N_BATCH, 6144, "bfloat16"), (FORWARD_PARITY_SEQ, 1280, "float32"),
-            (FORWARD_PARITY_SEQ, 6144, "float32")]:
+            (FORWARD_PARITY_SEQ, 6144, "float32"),
+            # phase 23's SMOKE widths in bf16: lm_speed_models's B=2, S=32
+            # (the q/k norms' head_dim 32 over 4 heads, and d 128, 192
+            # and 256), quickstart's B=8, S=64 and transient_train's
+            # B=16, S=128
+            (2 * 32 * 4, 32, "bfloat16"), (2 * 32, 128, "bfloat16"),
+            (2 * 32, 192, "bfloat16"), (2 * 32, 256, "bfloat16"),
+            (8 * 64, 128, "bfloat16"), (16 * 128, 256, "bfloat16")]:
         x = randn((rows, dim), getattr(torch, dtype), 4)
         dy = randn((rows, dim), getattr(torch, dtype), 8)
         scale = torch.linspace(0.5, 1.5, dim, device=dev)
@@ -3334,19 +3573,19 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
-    say(f"[1/22] card: {card}")
+    say(f"[1/23] card: {card}")
     say(f"      torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count={torch.cuda.device_count()}")
 
     # --------------------------------------------------------- 2. build
     t0 = time.monotonic()
     _build.library()
-    say(f"[2/22] build: {_build.library_path().name} in "
+    say(f"[2/23] build: {_build.library_path().name} in "
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.last_build_seconds:.1f}s)")
     say_build(_build)
 
     # ------------------------------------------------ 3. kernels vs plain
-    say("[3/22] kernels vs plain versions")
+    say("[3/23] kernels vs plain versions")
     cfg = get_config("qwen3-1.7b", smoke=False)
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     report = {}
@@ -3400,7 +3639,17 @@ def main() -> int:
               for dtype_ in ("bfloat16", "float32")],
             *[(2, 192, 320, 4, 2, hd_, False, dtype_) for hd_ in (80, 64)
               for dtype_ in ("bfloat16", "float32")],
-            (2, 255, 255, 6, 2, 64, True, "bfloat16")]:
+            (2, 255, 255, 6, 2, 64, True, "bfloat16"),
+            # phase 23's SMOKE widths at hd 32 in bf16: lm_speed_models's
+            # forwards (B=2, S=32: groups of 2 and 3, MHA, and hubert's
+            # bidirectional), quickstart's qwen3 (B=8, S=64, 4/2 heads)
+            # and transient_train's lm-14m (8/4 heads, S=128, B=16 and
+            # the 15 of a step after a member left)
+            *[(2, 32, 32, h_, kv_, 32, causal_, "bfloat16")
+              for h_, kv_, causal_ in ((4, 2, True), (6, 2, True),
+                                       (4, 4, True), (4, 4, False))],
+            (8, 64, 64, 4, 2, 32, True, "bfloat16"),
+            *[(b_, 128, 128, 8, 4, 32, True, "bfloat16") for b_ in (16, 15)]]:
         dt = getattr(torch, dtype)
         q = randn((B, Sq, h, hdim), dt, 1)
         k = randn((B, Sk, kv, hdim), dt, 2)
@@ -3569,7 +3818,12 @@ def main() -> int:
                                        (127, 80, True), (127, 64, False),
                                        (191, 80, False), (191, 64, True))],
             (2, 192, 320, 4, 2, 80, False, "bfloat16"),
-            (2, 192, 320, 4, 2, 64, False, "bfloat16")]
+            (2, 192, 320, 4, 2, 64, False, "bfloat16"),
+            # phase 23's training examples at hd 32: quickstart's qwen3
+            # SMOKE (B=8, S=64, 4/2 heads) and transient_train's lm-14m
+            # (8/4 heads, S=128, B=16 and 15)
+            (8, 64, 64, 4, 2, 32, True, "bfloat16"),
+            *[(b_, 128, 128, 8, 4, 32, True, "bfloat16") for b_ in (16, 15)]]
     # and hd 80 on views of one fused QKV projection
     for (B, Sq, Sk, h, kv, hdim, causal, dtype), fused in (
             [(case, False) for case in bwd_cases]
@@ -3919,10 +4173,10 @@ def main() -> int:
     L = cfg.n_layers
     n_norms = norm_count(cfg)
     session, params, launches = phase_prefill(
-        c, "4/22", "qwen3-1.7b",
+        c, "4/23", "qwen3-1.7b",
         counts(flash_attention_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "5/22", session, params,
+    add(phase_serve(c, "5/23", session, params,
                     counts(rmsnorm_fwd=n_norms), SERVE_VS_PREFILL_TOL))
     del session, params
     release(torch)
@@ -3930,16 +4184,16 @@ def main() -> int:
         flash_attention_fwd=L, flash_attention_bwd=L, rmsnorm_fwd=n_norms,
         rmsnorm_bwd=n_norms)}
     add(phase_train(
-        c, "6/22", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
+        c, "6/23", "qwen3-1.7b", train_step_launches["qwen3-1.7b"],
         attn_step_flops(cfg, TRAIN_BATCH, SEQ),
         "6 N per token plus the attention products"))
-    phase_parity(c, "7/22", "qwen3-1.7b",
+    phase_parity(c, "7/23", "qwen3-1.7b",
                  counts(flash_attention_fwd=2, flash_attention_bwd=2,
                         rmsnorm_fwd=4 * 2 + 1, rmsnorm_bwd=4 * 2 + 1),
                  PARITY_TOL)
 
     # --------------------------------------- 7b. checkpoint and resume
-    say("[7b/22] resume: SMOKE config, checkpoint_interval=2; 4 steps "
+    say("[7b/23] resume: SMOKE config, checkpoint_interval=2; 4 steps "
         "straight vs 2 steps + a new Session restoring at step 2 for 2 more")
     kw = dict(global_batch=4, seq_len=128)
     with tempfile.TemporaryDirectory() as dir_a, \
@@ -3964,9 +4218,9 @@ def main() -> int:
     L = mcfg.n_layers
     n_norms = 2 * L + 1                       # ln and gated norm, final
     session, params, launches = phase_prefill(
-        c, "8/22", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
+        c, "8/23", "mamba2-1.3b", counts(ssd_scan_fwd=L, rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "9/22", session, params,
+    add(phase_serve(c, "9/23", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
@@ -3979,10 +4233,10 @@ def main() -> int:
     train_step_launches["mamba2-1.3b"] = counts(ssd_scan_fwd=L,
                                                 rmsnorm_fwd=n_norms,
                                                 rmsnorm_bwd=n_norms)
-    add(phase_train(c, "10/22", "mamba2-1.3b",
+    add(phase_train(c, "10/23", "mamba2-1.3b",
                     train_step_launches["mamba2-1.3b"], ssd_step,
                     "6 N per token plus the SSD products"))
-    phase_parity(c, "11/22", "mamba2-1.3b",
+    phase_parity(c, "11/23", "mamba2-1.3b",
                  counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1,
                         rmsnorm_bwd=2 * 2 + 1),
                  SSM_PARITY_TOL)
@@ -3993,50 +4247,53 @@ def main() -> int:
     n_shared = L // zcfg.shared_attn_every
     n_norms = 2 * L + 2 * n_shared + 1
     session, params, launches = phase_prefill(
-        c, "12/22", "zamba2-1.2b",
+        c, "12/23", "zamba2-1.2b",
         counts(ssd_scan_fwd=L, flash_attention_fwd=n_shared,
                rmsnorm_fwd=n_norms))
     add(launches)
-    add(phase_serve(c, "12/22", session, params,
+    add(phase_serve(c, "12/23", session, params,
                     counts(rmsnorm_fwd=n_norms), SSM_SERVE_VS_PREFILL_TOL,
                     in_fp32=True))
     del session, params
     release(torch)
 
     # --------------------------------------- 13. the fleet device engine
-    add(phase_fleet(c, "13/22"))
+    add(phase_fleet(c, "13/23"))
 
     # ------------------------------------- 14. the §VI-B live chaos loop
-    add(phase_live(c, "14/22"))
+    add(phase_live(c, "14/23"))
 
     # ------------------------- 15. the §III-§V model leg, fitted on the card
-    add(phase_models(c, "15/22", train_step_launches))
+    add(phase_models(c, "15/23", train_step_launches))
 
     # ------------------- 16. the recorded trace and the serving fleet
-    add(phase_trace_serving(c, "16/22"))
+    add(phase_trace_serving(c, "16/23"))
 
     # ------------------ 17. MoE and MLA: granite-moe and deepseek-v2-lite
     for arch in MOE_ARCHS:
-        add(phase_moe(c, "17/22", arch))
+        add(phase_moe(c, "17/23", arch))
 
     # ---------- 18. the dense and VLM archs: stablelm, qwen2-vl, yi, starcoder2
     for arch in DENSE_ARCHS:
-        add(phase_dense(c, "18/22", arch))
+        add(phase_dense(c, "18/23", arch))
 
     # ------------------------- 19. the audio encoder: hubert-xlarge, hd 80
-    add(phase_encoder(c, "19/22"))
+    add(phase_encoder(c, "19/23"))
 
     # ----------------------------------- 20. the paper's CIFAR-10 CNN zoo
-    phase_cnn(c, "20/22")
+    phase_cnn(c, "20/23")
     say(f"  ({time.monotonic() - t_start:.1f} s since the start)")
 
     # ---- 21. async PS, remat and the int8 KV cache at full qwen3 width
-    add(phase_async(c, "21/22"))
-    add(phase_remat(c, "21/22"))
-    add(phase_int8(c, "21/22"))
+    add(phase_async(c, "21/23"))
+    add(phase_remat(c, "21/23"))
+    add(phase_int8(c, "21/23"))
 
     # ------------- 22. the dry run's accounting against phases 4 and 21
-    phase_dryrun(c, "22/22")
+    phase_dryrun(c, "22/23")
+
+    # -------- 23. the paper's table and figure drivers and the examples
+    add(phase_bench(c, "23/23"))
 
     # ------------------------------------------------------------ result
     kernels = []
@@ -4052,7 +4309,7 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
-    say(f"phases 1-22 in {time.monotonic() - t_start:.1f} s")
+    say(f"phases 1-23 in {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,11 @@
     python -m repro_torch chaos --scenario ps_crash --smoke [--no-live]
     python -m repro_torch dryrun --arch qwen3-1.7b --shape train_4k
     python -m repro_torch dryrun --sweep --jobs 3
+    python -m repro_torch bench --only lm_speed_models,fig2_stability
 
 Runs on the CUDA card unless ``--device cpu`` is given; `dryrun` counts
-on the meta device and needs no device at all.
+on the meta device and needs no device at all, nor do the bench modules
+that need no model (the paper's tables, Figs 3, 4, 6, 11, 12, Eq (4)).
 """
 from __future__ import annotations
 
@@ -118,6 +120,15 @@ def build_parser():
     # simulated fleets and the live trainer runs inherit
     cli.add_resilience_args(c)
     cli.add_recalib_args(c)
+    b = sub.add_parser("bench", help="the paper's table/figure drivers "
+                                     "(`name,value,derived` CSV rows); "
+                                     "those that run a model run on the "
+                                     "card")
+    b.add_argument("--only", default="",
+                   help="comma-separated benchmark module subset")
+    b.add_argument("--list", action="store_true",
+                   help="list available benchmark modules and exit")
+    cli.add_device_arg(b)
     # `dryrun` is dispatched before argparse in main(): its flags are owned
     # by repro_torch.launch.dryrun (or repro_torch.launch.sweep under
     # --sweep). Registered here for `--help` only.
@@ -314,6 +325,17 @@ def _cmd_chaos(args) -> int:
     return 0
 
 
+def _cmd_bench(args) -> int:
+    from repro_torch.bench import run as bench_run
+
+    argv = ["--list"] if args.list else []
+    if args.only:
+        argv += ["--only", args.only]
+    if args.device:
+        argv += ["--device", args.device]
+    return bench_run.main(argv)
+
+
 def _cmd_dryrun(rest: List[str]) -> int:
     if "--sweep" in rest:
         from repro_torch.launch import sweep
@@ -331,10 +353,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     try:
         return {"train": _cmd_train, "serve": _cmd_serve, "plan": _cmd_plan,
                 "simulate": _cmd_simulate, "predict": _cmd_predict,
-                "chaos": _cmd_chaos}[args.cmd](args)
+                "chaos": _cmd_chaos, "bench": _cmd_bench}[args.cmd](args)
     except NoCudaDevice as e:
         # no CUDA device and no --device cpu: a clean error, exit 2
-        print(f"error: {e}", file=sys.stderr)
+        print(f"error: {type(e).__name__}: {e}", file=sys.stderr)
         return 2
     except ValueError as e:
         # domain validation (e.g. a (region, gpu) cell the selected

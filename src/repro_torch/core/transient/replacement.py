@@ -43,3 +43,14 @@ class ReplacementModel:
     def sample(self, c_m_gflops: float, cold: bool = True) -> float:
         mean = (self.cold_start_s if cold else self.warm_start_s)(c_m_gflops)
         return float(max(1.0, self.rng.normal(mean, 0.05 * mean)))
+
+
+def recomputation_overhead_s(steps_since_checkpoint: int,
+                             cluster_speed_steps_per_s: float,
+                             reuse_chief_identity: bool) -> float:
+    """Fig 11: stock TF discards progress since the last checkpoint when the
+    replacement inherits the chief identity; with CM-DARE-style handover the
+    overhead is 0 (another worker already holds the checkpoint lease)."""
+    if not reuse_chief_identity:
+        return 0.0
+    return steps_since_checkpoint / max(cluster_speed_steps_per_s, 1e-9)

@@ -1,12 +1,27 @@
 """Shared argparse wiring for the port's entry points (the twin of the
 JAX package's `launch/cli.py`, for the flags of the ported verbs:
-train, serve (and `serve --fleet`), plan, simulate, predict and chaos)."""
+train, serve (and `serve --fleet`), plan, simulate, predict, chaos and
+bench, and for the examples under `repro_torch.examples`)."""
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
 from repro_torch.configs import ARCH_IDS, RunConfig
+
+
+def make_parser(prog: str, description: str) -> argparse.ArgumentParser:
+    """A parser for a standalone entry point (an example, the bench
+    driver), with the port's ``--device`` flag."""
+    p = argparse.ArgumentParser(prog=prog, description=description)
+    add_device_arg(p)
+    return p
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device; default the CUDA card (pass 'cpu' "
+                        "for the plain PyTorch path)")
 
 
 def add_arch_arg(p: argparse.ArgumentParser,
@@ -20,9 +35,7 @@ def add_scale_args(p: argparse.ArgumentParser) -> None:
                    help="the full-width config; default is the reduced "
                         "smoke config")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default=None,
-                   help="torch device; default the CUDA card (pass 'cpu' "
-                        "for the plain PyTorch path)")
+    add_device_arg(p)
 
 
 def add_batch_args(p: argparse.ArgumentParser, batch_default: int = 8,
