@@ -479,6 +479,7 @@ def device_profile(torch, fn, n: int, count=None, host: bool = True,
     call summed over kernels and copies (ms) and that time by kernel name,
     largest first; a dict given as ``count`` receives the number of
     device events per call under "events", and by name under "by_name".
+    The device-side annotations of `record_function` ranges are left out.
     The profiler slows the host, so host wall times are taken without it;
     ``host=False`` leaves the host's ops out of the trace, which a train
     step's tens of thousands of them make slow to read back. A trace that
@@ -497,7 +498,10 @@ def device_profile(torch, fn, n: int, count=None, host: bool = True,
             torch.cuda.synchronize()
         by_name, n_by_name, events = {}, {}, 0
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            # a `record_function` range (the port's spans) leaves a
+            # device-side annotation, not an operation
+            if e.device_type == DeviceType.CUDA and \
+                    not e.is_user_annotation:
                 events += 1
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3 / n)

@@ -81,7 +81,8 @@ def main() -> int:
                                  ProfilerActivity.CUDA]) as prof:
             state, _ = one()
         device_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                        if e.device_type == DeviceType.CUDA) / 1e3
+                        if e.device_type == DeviceType.CUDA
+                        and not e.is_user_annotation) / 1e3
         rows = sorted(prof.key_averages(),
                       key=lambda r: -r.self_cpu_time_total)
         host_ms = sum(r.self_cpu_time_total for r in rows) / 1e3

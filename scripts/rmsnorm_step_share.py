@@ -50,7 +50,7 @@ def norm_share(prof, DeviceType):
 
     busy, kernels = 0.0, 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             busy += e.time_range.elapsed_us() / 1e3
             kernels += 1
         elif e.name == "_RMSNorm":

@@ -39,6 +39,7 @@ from repro_torch.launch import steps as st
 from repro_torch.models import api
 from repro_torch.resilience import (ResilienceConfig, RetryExhausted,
                                     call_with_retries)
+from repro_torch.spans import span
 from repro_torch.tree import tree_map
 
 
@@ -311,8 +312,10 @@ class TransientTrainer:
                 self.loader.global_batch = base_global_batch
             # 2. data (global batch stays constant across membership changes)
             n_shards = max(1, self.members.n_alive)
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in self.loader.next_global(n_shards).items()}
+            with span("trainer.batch"):
+                shards = self.loader.next_global(n_shards)
+                batch = {k: torch.from_numpy(v).to(self.device)
+                         for k, v in shards.items()}
             # 3. step
             state, metrics = self.train_step(state, batch)
             self.state = state

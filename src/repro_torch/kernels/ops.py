@@ -17,7 +17,8 @@ reference's `jax.custom_vjp`):
   takes `jax.vjp` of its oracle (it has no Pallas backward);
 * SSD scan: the forward kernel (``csrc/ssd_scan.cu``), whose inputs are
   saved, and a backward by recompute — autograd over `ref.ssd_scan_ref`
-  at the same chunk, as the reference's `_ssd_bwd`;
+  at the same chunk, as the reference's `_ssd_bwd`, inside the span
+  ``repro_torch.ssd_bwd`` (`repro_torch.spans`);
 * event select (the fleet engine's next event): the kernel
   (``csrc/event_select.cu``), not differentiable, so no Function.
 
@@ -47,6 +48,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_scan as ss
+from repro_torch.spans import span
 
 launches: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd": 0, "rmsnorm_fwd": 0,
@@ -171,7 +173,7 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        with torch.enable_grad():
+        with span("ssd_bwd"), torch.enable_grad():
             ins = [t.detach().requires_grad_(need) for t, need in
                    zip(ctx.saved_tensors, ctx.needs_input_grad)]
             y = ref.ssd_scan_ref(*ins, ctx.chunk)

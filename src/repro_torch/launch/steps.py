@@ -23,6 +23,7 @@ from repro_torch.dist.compression import ErrorFeedback, payload_bytes
 from repro_torch.models import api
 from repro_torch.optim import (clip_by_global_norm, cosine_warmup,
                                make_optimizer)
+from repro_torch.spans import span
 from repro_torch.tree import tree_map
 
 
@@ -144,8 +145,10 @@ def _value_and_grad(cfg: ModelConfig, params, batch):
     """(loss, grads) of `api.loss_fn` at ``params``; the grads have the
     params' dtypes."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss = api.loss_fn(live, cfg, batch)
-    loss.backward()
+    with span("step.forward"):
+        loss = api.loss_fn(live, cfg, batch)
+    with span("step.backward"):
+        loss.backward()
     return loss.detach(), tree_map(lambda p: p.grad, live)
 
 
@@ -169,38 +172,42 @@ def make_train_step(cfg: ModelConfig, run: RunConfig):
           if run.grad_compression != "none" else None)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        if run.microbatch and run.microbatch > 1:
-            n = run.microbatch
+        with span("step"):
+            if run.microbatch and run.microbatch > 1:
+                n = run.microbatch
 
-            def micro(x, i):
-                if x.dim() >= 1 and x.shape[0] % n == 0:
-                    return x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
-                return x
+                def micro(x, i):
+                    if x.dim() >= 1 and x.shape[0] % n == 0:
+                        return x.reshape(
+                            (n, x.shape[0] // n) + x.shape[1:])[i]
+                    return x
 
-            loss = 0.0
-            grads = tree_map(
-                lambda p: torch.zeros_like(p, dtype=torch.float32),
-                state.params)
-            for i in range(n):
-                mb = {k: micro(x, i) for k, x in batch.items()}
-                l, g = _value_and_grad(cfg, state.params, mb)
-                loss = loss + l / n
-                grads = tree_map(lambda a, b: a + b / n, grads, g)
-        else:
-            loss, grads = _value_and_grad(cfg, state.params, batch)
+                loss = 0.0
+                grads = tree_map(
+                    lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    state.params)
+                for i in range(n):
+                    mb = {k: micro(x, i) for k, x in batch.items()}
+                    l, g = _value_and_grad(cfg, state.params, mb)
+                    loss = loss + l / n
+                    grads = tree_map(lambda a, b: a + b / n, grads, g)
+            else:
+                loss, grads = _value_and_grad(cfg, state.params, batch)
 
-        grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
-        residual = state.residual
-        metrics = {"loss": loss.float(), "grad_norm": gnorm,
-                   "step": state.step}
-        if ef is not None:
-            grads, residual = ef.roundtrip(grads, residual)
-            metrics["payload_bytes"] = payload_bytes(grads,
-                                                     run.grad_compression)
-        new_params, new_opt = opt.update(grads, state.opt, state.params,
-                                         state.step)
-        return TrainState(new_params, new_opt, state.step + 1,
-                          residual), metrics
+            with span("step.clip"):
+                grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
+            residual = state.residual
+            metrics = {"loss": loss.float(), "grad_norm": gnorm,
+                       "step": state.step}
+            if ef is not None:
+                grads, residual = ef.roundtrip(grads, residual)
+                metrics["payload_bytes"] = payload_bytes(grads,
+                                                         run.grad_compression)
+            with span("step.optimizer"):
+                new_params, new_opt = opt.update(grads, state.opt,
+                                                 state.params, state.step)
+            return TrainState(new_params, new_opt, state.step + 1,
+                              residual), metrics
 
     return train_step, opt
 
