@@ -47,7 +47,9 @@ Phases, each of which exits non-zero on failure:
             forward and backward and the autograd recompute the backward
             kernel replaced; the host cost of RMSNorm's
             dispatch through its autograd Function; the SSD backward
-            (autograd over the plain version);
+            kernel at mamba2's training shape against its plain twin,
+            two calls bit for bit, on the device beside its bound, the
+            twin and the autograd recompute it replaced;
 4-7b. qwen3-1.7b (dense), full width:
    4. prefill: B=1, S=2048 through `launch.steps.make_prefill_step`, which
             must launch the flash kernel once per layer and the RMSNorm
@@ -352,7 +354,7 @@ NORM_STEP_RECOMPUTE = {"qwen3-1.7b": (55.189, 2938, 7112)}
 LIVE_BATCH, LIVE_SEQ = 4, 32
 TRAIN_STEPS, TRAIN_BATCH = 4, 2
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
-           "rmsnorm_bwd", "ssd_scan_fwd", "event_select_fwd")
+           "rmsnorm_bwd", "ssd_scan_fwd", "ssd_scan_bwd", "event_select_fwd")
 # the fleet engines' contract (tests/test_engine_parity.py:_assert_parity):
 # counts exact, times and costs to rtol 1e-9, accruals to 1e-6
 FLEET_N, FLEET_CORPUS_N = 65536, 1024
@@ -3299,6 +3301,68 @@ def smoke_logits_held(c) -> None:
     release(torch)
 
 
+def ssd_bwd_kernel(k, ins, chunk: int, report: dict) -> None:
+    """Phase 3's SSD backward part, at the bf16 inputs ``ins`` (x, dt, A,
+    B, C): the kernel against its plain twin (`ref.ssd_scan_bwd_ref`), two
+    calls bit for bit, its device time by kernel beside its bound, and the
+    twin's time and the autograd recompute's (the plain forward and
+    autograd's backward over it: what the kernel replaced). Adds its row
+    to `report`. ``k`` carries torch, ss, ref and dev."""
+    torch, ss, ref, dev = k.torch, k.ss, k.ref, k.dev
+    b, s, h, p = ins[0].shape
+    g, n = ins[3].shape[2], ins[3].shape[3]
+    dy = torch.randn(ins[0].shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(7)
+                     ).to(torch.bfloat16)
+    got = ss.ssd_scan_bwd(*ins, dy, chunk)
+    want = ref.ssd_scan_bwd_ref(*ins, dy, chunk)
+    torch.cuda.synchronize()
+    shape = f"b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk} bf16"
+    errs = [compare_scaled(torch, f"ssd backward {name} {shape}", gt, wt,
+                           *SSD_TOL["bfloat16"])
+            for name, gt, wt in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                                    want)]
+    again = ss.ssd_scan_bwd(*ins, dy, chunk)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+        fail("two calls of the SSD backward kernel differ")
+    say("  ssd_scan_bwd: two calls bit for bit")
+    del got, want, again
+    _, ranked = device_profile(
+        torch, lambda: ss.ssd_scan_bwd(*ins, dy, chunk), 10)
+    stages = [(re.search(r"chunkscan_bwd_\w+(<[^>]*>)?", nm).group(0), t)
+              for nm, t in ranked if "chunkscan_bwd_" in nm]
+    if not stages:
+        fail("the profiler saw no SSD backward kernel on the device")
+    dev_ms = sum(t for _, t in stages)
+    ms = time_ms(torch, lambda: ss.ssd_scan_bwd(*ins, dy, chunk))
+    plain_ms = time_ms(torch, lambda: ref.ssd_scan_bwd_ref(*ins, dy, chunk),
+                       warmup=1, iters=5)
+    leaves = [t.detach().requires_grad_() for t in ins]
+    recompute_ms = time_ms(torch, lambda: torch.autograd.grad(
+        ref.ssd_scan_ref(*leaves, chunk), leaves, dy), warmup=1, iters=5)
+    flops, nbytes = ss.bwd_cost(b, s, h, p, g, n, chunk)
+    bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+    report["ssd_scan_bwd"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        replaces="none (the reference takes `jax.vjp`: "
+                 "src/repro/kernels/ops.py `_ssd_bwd`)",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound * 1e3,
+        bound_by=("operations" if flops / PEAK_FLOPS["bfloat16"]
+                  >= nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=None, device_ms=dev_ms, recompute_ms=recompute_ms)
+    say(f"  ssd_scan_bwd @ {shape}: kernel {ms:.4f} ms per call "
+        f"({dev_ms:.4f} ms on the device in {len(stages)} kernels), plain "
+        f"twin {plain_ms:.3f} ms, autograd recompute (what the kernel "
+        f"replaced) {recompute_ms:.3f} ms, bound {bound * 1e3:.4f} ms "
+        f"({flops / 1e9:.2f} GFLOP / 989 TFLOP/s; {nbytes / 1e6:.1f} MB / "
+        f"3.35 TB/s): {100 * bound * 1e3 / dev_ms:.1f}% of the bound")
+    for nm, t in stages:
+        say(f"    {t:.4f} ms  {nm}")
+    say_rate("kernel", ms, flops, bound * 1e3)
+
+
 def rmsnorm_kernels(k, cfg, randn, report: dict) -> None:
     """Phase 3's RMSNorm part. The forward and backward kernels held
     against the plain versions at every width the port normalises (the
@@ -4056,18 +4120,13 @@ def main() -> int:
         f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
         f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
     say_rate("kernel", ms, flops, bound * 1e3)
-    # the backward is the plain version's, by recompute (`ops._SSDScan`)
-    b = TRAIN_BATCH
-    ins = [t.requires_grad_() for t in ssd_inputs(b, s, h, p, g, n,
-                                                  torch.bfloat16)]
-    y = ops.ssd_scan(*ins, chunk)
-    dy = torch.randn_like(y)
-    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        y, ins, dy, retain_graph=True), warmup=1, iters=5)
-    say(f"  ops.ssd_scan backward @ b={b} (autograd over the plain version, "
-        f"by recompute): {bwd_ms:.3f} ms per call")
-    del ins, y, dy
-    torch.cuda.synchronize()
+    del ins
+    # the backward kernel at mamba2-1.3b's training shape (B=4, as the
+    # benchmark's cell runs it), on views of one conv output
+    ssd_bwd_kernel(types.SimpleNamespace(torch=torch, ss=ss, ref=ref,
+                                         dev=dev),
+                   ssd_inputs(4, s, h, p, g, n, torch.bfloat16, views=True),
+                   chunk, report)
 
     es_errs = []
 
@@ -4235,14 +4294,15 @@ def main() -> int:
                                  ms_.n_groups, ms_.d_state,
                                  ms_.chunk_size)[0]
     train_step_launches["mamba2-1.3b"] = counts(ssd_scan_fwd=L,
+                                                ssd_scan_bwd=L,
                                                 rmsnorm_fwd=n_norms,
                                                 rmsnorm_bwd=n_norms)
     add(phase_train(c, "10/23", "mamba2-1.3b",
                     train_step_launches["mamba2-1.3b"], ssd_step,
                     "6 N per token plus the SSD products"))
     phase_parity(c, "11/23", "mamba2-1.3b",
-                 counts(ssd_scan_fwd=2, rmsnorm_fwd=2 * 2 + 1,
-                        rmsnorm_bwd=2 * 2 + 1),
+                 counts(ssd_scan_fwd=2, ssd_scan_bwd=2,
+                        rmsnorm_fwd=2 * 2 + 1, rmsnorm_bwd=2 * 2 + 1),
                  SSM_PARITY_TOL)
 
     # ----------------------------------------- 12. zamba2-1.2b, hybrid

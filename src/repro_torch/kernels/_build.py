@@ -23,7 +23,7 @@ from typing import List, Optional
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "rmsnorm.cu",
-           "ssd_scan.cu", "event_select.cu")
+           "ssd_scan.cu", "ssd_scan_bwd.cu", "event_select.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v"]
@@ -113,6 +113,9 @@ SIGNATURES = {
     "repro_ssd_scan_fwd": (
         [_P] * 7 + [_I64] + [_I32] * 7 + [_I64] * 12 + [_P], _I32),
     "repro_ssd_scan_workspace_bytes": ([_I32] * 6, _I64),
+    "repro_ssd_scan_bwd": (
+        [_P] * 12 + [_I64] + [_I32] * 6 + [_I64] * 12 + [_P], _I32),
+    "repro_ssd_scan_bwd_workspace_bytes": ([_I32] * 6, _I64),
     "repro_event_select_fwd": ([_P] * 3 + [_I64, _I32, _I32, _P], _I32),
 }
 

@@ -16,9 +16,13 @@ reference's `jax.custom_vjp`):
   backward kernel (``csrc/rmsnorm.cu``), where the reference's `_rn_bwd`
   takes `jax.vjp` of its oracle (it has no Pallas backward);
 * SSD scan: the forward kernel (``csrc/ssd_scan.cu``), whose inputs are
-  saved, and a backward by recompute — autograd over `ref.ssd_scan_ref`
-  at the same chunk, as the reference's `_ssd_bwd`, inside the span
-  ``repro_torch.ssd_bwd`` (`repro_torch.spans`);
+  saved (not its chunk states), and a backward chosen by dtype inside the
+  span ``repro_torch.ssd_bwd`` (`repro_torch.spans`): bf16 (every training
+  step) launches the backward kernel (``csrc/ssd_scan_bwd.cu``), which
+  recomputes the states, where the reference's `_ssd_bwd` takes
+  `jax.vjp` of its oracle; fp32 (the test and parity path, whose forward
+  is the fp32 kernel) takes autograd over `ref.ssd_scan_ref` at the same
+  chunk, as the reference does;
 * event select (the fleet engine's next event): the kernel
   (``csrc/event_select.cu``), not differentiable, so no Function.
 
@@ -53,7 +57,7 @@ from repro_torch.spans import span
 launches: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd": 0, "rmsnorm_fwd": 0,
                             "rmsnorm_bwd": 0, "ssd_scan_fwd": 0,
-                            "event_select_fwd": 0}
+                            "ssd_scan_bwd": 0, "event_select_fwd": 0}
 
 
 #: the dry run's count by kernel: [calls on the meta device, operations,
@@ -173,12 +177,25 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        with span("ssd_bwd"), torch.enable_grad():
-            ins = [t.detach().requires_grad_(need) for t, need in
-                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            y = ref.ssd_scan_ref(*ins, ctx.chunk)
-            wrt = [t for t in ins if t.requires_grad]
-            grads = iter(torch.autograd.grad(y, wrt, dy))
+        x, dt, A, B, C = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with span("ssd_bwd"):
+            if x.dtype == torch.bfloat16:
+                # the kernel computes all five gradients in one call
+                grads = ss.ssd_scan_bwd(x, dt, A, B, C, dy, ctx.chunk)
+                if x.is_meta:
+                    _tally("ssd_scan_bwd", ss.bwd_cost(
+                        *x.shape, *B.shape[2:], ctx.chunk, x.element_size()))
+                else:
+                    launches["ssd_scan_bwd"] += 1
+                return tuple(grad if want else None
+                             for grad, want in zip(grads, need)) + (None,)
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_(want)
+                       for t, want in zip(ctx.saved_tensors, need)]
+                y = ref.ssd_scan_ref(*ins, ctx.chunk)
+                wrt = [t for t in ins if t.requires_grad]
+                grads = iter(torch.autograd.grad(y, wrt, dy))
         return tuple(next(grads) if t.requires_grad else None
                      for t in ins) + (None,)
 

@@ -111,6 +111,88 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                chunk=chunk).to(x.dtype)
 
 
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                     chunk: int) -> Tuple[torch.Tensor, ...]:
+    """The gradients of `ssd_scan_ref`'s y given ``dy``, from the closed
+    form, in fp32: the oracle of the SSD backward kernel. Per chunk, with
+    ``cum`` the cumsum of dt A, ``Lg`` its last value, the states S_c
+    entering each chunk (the forward's recurrence) and D_c, the gradient
+    of the state leaving it (``D_last = 0``, ``D_{c-1} = e^Lg_c D_c +
+    sum_l e^cum_l C_l dy_lᵀ``)::
+
+        dx_m  = sum_{l>=m} (C_l.B_m) e^(cum_l-cum_m) dt_m dy_l
+                + e^(Lg-cum_m) dt_m Dᵀ B_m
+        dC_l  = sum_{m<=l} e^(cum_l-cum_m) dt_m (dy_l.x_m) B_m
+                + e^cum_l S_c dy_l
+        dB_m  = sum_{l>=m} e^(cum_l-cum_m) dt_m (dy_l.x_m) C_l
+                + e^(Lg-cum_m) dt_m D x_m
+
+    (dB, dC summed over each group's heads); ``dcum`` from the terms in
+    ``cum``, its reverse cumsum ``da``, ``ddt += A da`` and ``dA = sum dt
+    da``. Returns (dx, ddt, dA, dB, dC) in the inputs' dtypes."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    L = min(int(chunk), s)
+    nc, r = s // L, h // g
+    xc = x.float().reshape(b, nc, L, g, r, p)
+    dyc = dy.float().reshape(b, nc, L, g, r, p)
+    dtc = dt.float().reshape(b, nc, L, g, r).permute(0, 1, 3, 4, 2)
+    Bc = B.float().reshape(b, nc, L, g, n)
+    Cc = C.float().reshape(b, nc, L, g, n)
+    cum = torch.cumsum(dtc * A.float().reshape(g, r, 1), dim=-1)  # (b,nc,g,r,L)
+    last = cum[..., -1]                                            # (b,nc,g,r)
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp((cum[..., :, None] - cum[..., None, :])
+                      .masked_fill(~causal, float("-inf")))        # (..,l,m)
+    cb = torch.einsum("bclgn,bcmgn->bcglm", Cc, Bc)[:, :, :, None]
+    dyx = torch.einsum("bclgrp,bcmgrp->bcgrlm", dyc, xc)
+    dt_m = dtc[..., None, :]
+    q = cb * decay * dyx                    # ddt's intra-chunk terms
+    m_lm = q * dt_m                         # M_lm, the terms in cum
+    scores = cb * decay * dt_m
+    hd = decay * dt_m * dyx
+    ew = torch.exp(last[..., None] - cum)   # e^(Lg - cum_m)
+    w = ew * dtc
+    ec = torch.exp(cum)
+
+    local = torch.einsum("bcmgn,bcgrm,bcmgrp->bcgrnp", Bc, w, xc)
+    dy_state = torch.einsum("bclgn,bcgrl,bclgrp->bcgrnp", Cc, ec, dyc)
+    gammas = torch.exp(last)[..., None, None]
+    state = torch.zeros_like(local[:, 0])
+    grad = torch.zeros_like(local[:, 0])
+    S, D = [], [None] * nc
+    for c in range(nc):
+        S.append(state)
+        state = gammas[:, c] * state + local[:, c]
+    for c in reversed(range(nc)):
+        D[c] = grad
+        grad = gammas[:, c] * grad + dy_state[:, c]
+    S, D = torch.stack(S, dim=1), torch.stack(D, dim=1)    # (b,nc,g,r,n,p)
+
+    bd = torch.einsum("bcmgn,bcgrnp->bcgrmp", Bc, D)       # (Dᵀ B_m)
+    dx = (torch.einsum("bcgrlm,bclgrp->bcmgrp", scores, dyc)
+          + (bd * w[..., None]).permute(0, 1, 4, 2, 3, 5))
+    dB = (torch.einsum("bcgrlm,bclgn->bcmgn", hd, Cc)
+          + torch.einsum("bcgrm,bcgrnp,bcmgrp->bcmgn", w, D, xc))
+    dC = (torch.einsum("bcgrlm,bcmgn->bclgn", hd, Bc)
+          + torch.einsum("bcgrl,bcgrnp,bclgrp->bclgn", ec, S, dyc))
+    v = torch.einsum("bcgrmp,bcmgrp->bcgrm", bd, xc)       # B_mᵀ D x_m
+    ddt = q.sum(-2) + ew * v
+    u = w * v
+    y_off = torch.einsum("bclgn,bcgrnp->bcgrlp", Cc, S) * ec[..., None]
+    dcum = (m_lm.sum(-1) - m_lm.sum(-2) - u
+            + torch.einsum("bcgrlp,bclgrp->bcgrl", y_off, dyc))
+    dcum[..., -1] += u.sum(-1) + torch.exp(last) * (D * S).sum((-2, -1))
+    da = dcum.flip(-1).cumsum(-1).flip(-1)
+    ddt = ddt + A.float().reshape(g, r, 1) * da
+    dA = (dtc * da).sum((0, 1, 4)).reshape(h)
+    return (dx.reshape(b, s, h, p).to(x.dtype),
+            ddt.permute(0, 1, 4, 2, 3).reshape(b, s, h).to(dt.dtype),
+            dA.to(A.dtype), dB.reshape(b, s, g, n).to(B.dtype),
+            dC.reshape(b, s, g, n).to(C.dtype))
+
+
 def event_select_ref(ev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row masked min and argmin of an (n, m) candidate-event matrix
     (inf = masked), ties broken to the lowest column: ``(t (n,), i (n,)
