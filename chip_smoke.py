@@ -3341,7 +3341,7 @@ def ssd_bwd_kernel(k, ins, chunk: int, report: dict) -> None:
     leaves = [t.detach().requires_grad_() for t in ins]
     recompute_ms = time_ms(torch, lambda: torch.autograd.grad(
         ref.ssd_scan_ref(*leaves, chunk), leaves, dy), warmup=1, iters=5)
-    flops, nbytes = ss.bwd_cost(b, s, h, p, g, n, chunk)
+    flops, nbytes = ss.bwd_cost(b, s, h, p, g, n)
     bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
     report["ssd_scan_bwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",

@@ -35,10 +35,16 @@ WRAPPERS = ("ref", "flash_attention", "rmsnorm", "ssd_scan", "event_select",
 
 def load_wrappers(src: pathlib.Path) -> dict:
     """Another tree's kernel wrappers as fresh modules (this tree's
-    `_build` and its library stay shared); sys.modules is restored."""
+    `_build` and its library stay shared); sys.modules is restored. An
+    operator registers once a process, so the other tree's registered
+    launches (the SSD backward's, which no call here times) are loaded
+    as plain functions."""
+    import torch
     import repro_torch.kernels as pkg
     names = [f"repro_torch.kernels.{w}" for w in WRAPPERS]
     saved = {n: sys.modules[n] for n in names}
+    custom_op = torch.library.custom_op
+    torch.library.custom_op = lambda *_, **__: (lambda fn: fn)
     mods = {}
     try:
         for w, name in zip(WRAPPERS, names):
@@ -51,6 +57,7 @@ def load_wrappers(src: pathlib.Path) -> dict:
             setattr(pkg, w, mods[w])
             spec.loader.exec_module(mods[w])
     finally:
+        torch.library.custom_op = custom_op
         sys.modules.update(saved)
         for w, name in zip(WRAPPERS, names):
             setattr(pkg, w, saved[name])

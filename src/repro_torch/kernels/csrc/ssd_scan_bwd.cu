@@ -21,11 +21,11 @@
 // and on the last token sum_m u_m + e^Lg <D, S>); dA = sum dt da.
 //
 // What bounds it on the H100: the products, nearly as much as memory. At
-// the mamba2-1.3b training shape (b=4, s=2048, h=64, p=64, n=128, g=1,
-// chunk 256) a call reads x, dy, B, C and dt and writes dx, dB, dC and
-// ddt, 214 MB (64 us at 3.35 TB/s), and needs 104 GFLOP of products
+// the mamba2-1.3b training shape (b=4, s=2048, h=64, p=64, n=128, g=1) a
+// call reads x, dy, B, C and dt and writes dx, dB, dC and ddt, 214 MB (64
+// us at 3.35 TB/s), and needs 64.7 GFLOP of products over 64-token chunks
 // (`ssd_scan.bwd_cost`: the causal halves of the L x L terms and six
-// state-sized products a chunk; 105 us at 989 TFLOP/s).
+// state-sized products a chunk; 65 us at 989 TFLOP/s).
 //
 // Design: three stages, each a kernel on the caller's stream, over 64-token
 // chunks (the scan does not depend on the chunk length, so the kernel
@@ -73,7 +73,7 @@
 // head tile of a group each): 0.57 GB at the training shape. On the H100
 // there (PERF.md) the sweep moves about 0.94 GB in 0.33 ms, near the
 // memory's rate, and the chunk kernel about 0.5 GB and 65 GFLOP in 0.23
-// ms; the whole call takes 0.58 ms, 5.5x its bound. Tried and not kept: a
+// ms; the whole call takes 0.58 ms, 8.9x its bound. Tried and not kept: a
 // chunk-parallel pass of the local states in fp32 and a state pass over
 // them (0.71 ms for what the sweep does in 0.33); the sweep's bf16 states
 // stored from registers (0.64 ms) and at four blocks an SM (0.58, spills);

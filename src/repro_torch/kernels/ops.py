@@ -185,7 +185,7 @@ class _SSDScan(torch.autograd.Function):
                 grads = ss.ssd_scan_bwd(x, dt, A, B, C, dy, ctx.chunk)
                 if x.is_meta:
                     _tally("ssd_scan_bwd", ss.bwd_cost(
-                        *x.shape, *B.shape[2:], ctx.chunk, x.element_size()))
+                        *x.shape, *B.shape[2:], x.element_size()))
                 else:
                     launches["ssd_scan_bwd"] += 1
                 return tuple(grad if want else None

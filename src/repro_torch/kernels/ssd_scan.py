@@ -18,7 +18,7 @@ fp32 FMAs.
 
 The backward takes the forward's inputs as the forward takes them, dy
 in their dtype, and returns (dx, ddt, dA, dB, dC): dx, dB and dC in bf16,
-ddt and dA in fp32, each contiguous. It runs four stages over 64-token
+ddt and dA in fp32, each contiguous. It runs four kernels over 64-token
 chunks and a workspace this launcher allocates
 (``repro_ssd_scan_bwd_workspace_bytes`` sizes it).
 
@@ -36,6 +36,7 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (32, 64)
 STATE_DIMS = (16, 32, 64, 128)
+BWD_CHUNK = 64  # tokens per chunk of the backward kernel (`kL`)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -76,18 +77,22 @@ def cost(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     return float(flops), float(nbytes)
 
 
-def bwd_cost(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
+def bwd_cost(b: int, s: int, h: int, p: int, g: int, n: int,
              itemsize: int = 2) -> Tuple[float, float]:
-    """(products, bytes) of one backward call: per chunk of L tokens the
-    causal halves of C.B^T (once per group) and, per head, of dy.x^T,
-    scores^T.dy (dx), and the two L x L terms of dB and dC, plus six
-    state-sized products per head (the local state, dy's share of D,
-    B.D^T, x.D^T, C.S^T, dy.S^T); x, dy, dx, B, C, dB, dC in x's dtype,
-    dt, ddt, A and dA in fp32, each once."""
-    L = min(chunk, s)
-    pairs = L * (L + 1)            # 2 x the causal (l, m) pairs
-    flops = b * (s // L) * (g * n * pairs
-                            + h * ((2 * p + 2 * n) * pairs + 12 * L * n * p))
+    """(products, bytes) of one backward call, at the kernel's own chunk
+    of `BWD_CHUNK` tokens whatever chunk the caller names (the gradient
+    does not depend on it; a ragged last chunk counts its own length):
+    per chunk of L tokens the causal halves of C.B^T (once per group)
+    and, per head, of dy.x^T, scores^T.dy (dx), and the two L x L terms
+    of dB and dC, plus six state-sized products per head (the local
+    state, dy's share of D, B.D^T, x.D^T, C.S^T, dy.S^T); x, dy, dx, B,
+    C, dB, dC in x's dtype, dt, ddt, A and dA in fp32, each once."""
+    def chunk_flops(L: int) -> int:
+        pairs = L * (L + 1)        # 2 x the causal (l, m) pairs
+        return g * n * pairs + h * ((2 * p + 2 * n) * pairs + 12 * L * n * p)
+
+    full, rest = divmod(s, BWD_CHUNK)
+    flops = b * (full * chunk_flops(BWD_CHUNK) + chunk_flops(rest))
     nbytes = (3 * itemsize * b * s * h * p + 8 * (b * s * h + h)
               + 4 * itemsize * b * s * g * n)
     return float(flops), float(nbytes)
@@ -195,10 +200,16 @@ def _bwd_outputs(x, B, C):
             torch.empty((b, s, g, n), dtype=C.dtype, device=x.device))
 
 
-def _launch_bwd_impl(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                     B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                torch.Tensor, torch.Tensor]:
+# The launch is a registered operator so that a profiler ties the kernels
+# to the span around it: the profiler ties a kernel to the innermost
+# operator open at its launch (a `record_function` range is none), and a
+# call into the library is no operator, so without this one the kernels
+# went to autograd's node, which opens before ``repro_torch.ssd_bwd``.
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def _launch_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor]:
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     dx, ddt, dA, dB, dC = _bwd_outputs(x, B, C)
@@ -216,17 +227,3 @@ def _launch_bwd_impl(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _build.check(err, "ssd_scan_bwd")
     return dx, ddt, dA, dB, dC
 
-
-# The launch is a registered operator so that a profiler ties the kernels
-# to an operator that opens where the call does: the library links the
-# CUDA runtime statically, so its launches show the profiler no runtime
-# call of their own, and their kernels go to the innermost operator open
-# at the time (without this one, autograd's node, which opens before
-# ``repro_torch.ssd_bwd`` does). A second copy of this module in one
-# process (`scripts/wrapper_host_time.py` loads another tree's wrappers)
-# takes the operator the first registered.
-if hasattr(torch.ops.repro_torch, "ssd_scan_bwd"):
-    _launch_bwd = torch.ops.repro_torch.ssd_scan_bwd
-else:
-    _launch_bwd = torch.library.custom_op(
-        "repro_torch::ssd_scan_bwd", mutates_args=())(_launch_bwd_impl)

@@ -556,7 +556,7 @@ def test_ssd_bf16_backward_on_meta_tallies_the_kernel(wrt):
     assert [(t.shape, t.dtype, t.device.type) for t in got] == \
         [(ins[i].shape, ins[i].dtype, "meta") for i in wrt]
     assert ops.tally["ssd_scan_bwd"] == [1, *ss.bwd_cost(2, 256, 8, 64, 2,
-                                                         128, 128, 2)]
+                                                         128, 2)]
     assert set(ops.launches.values()) == {0}
 
 
@@ -584,9 +584,23 @@ def test_ssd_bwd_launcher_refuses_what_the_kernel_does_not_take():
         ss.ssd_scan_bwd(*wide, torch.empty_like(wide[0]), 64)
     with pytest.raises(ValueError, match="dy"):
         ss.ssd_scan_bwd(*meta, meta[0][:, :32], 64)
-    # the bwd cost at the cell's call: 103.6 GFLOP, 213.9 MB
-    flops, nbytes = ss.bwd_cost(4, 2048, 64, 64, 1, 128, 256)
-    assert (flops, nbytes) == (103550025728.0, 213910016.0)
+    # the bwd cost at the cell's call: 64.7 GFLOP, 213.9 MB
+    flops, nbytes = ss.bwd_cost(4, 2048, 64, 64, 1, 128)
+    assert (flops, nbytes) == (64693993472.0, 213910016.0)
+
+
+def test_ssd_bwd_cost_counts_the_kernels_chunk():
+    """`bwd_cost` counts 64-token chunks, as the kernel runs them, and a
+    ragged last chunk at its own length: its products are additive over
+    the chunks and its bytes over the tokens."""
+    from repro_torch.kernels import ssd_scan as ss
+    shape = dict(b=1, h=2, p=32, g=1, n=16)
+    full = ss.bwd_cost(s=ss.BWD_CHUNK, **shape)
+    part = ss.bwd_cost(s=36, **shape)
+    both = ss.bwd_cost(s=ss.BWD_CHUNK + 36, **shape)
+    assert both[0] == full[0] + part[0]
+    assert both[1] == full[1] + part[1] - 8 * shape["h"]   # A, dA once
+    assert ss.bwd_cost(s=4 * ss.BWD_CHUNK, **shape)[0] == 4 * full[0]
 
 
 # ---------------------------------------------------------- event select
