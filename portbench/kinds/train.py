@@ -2,8 +2,9 @@
 widths, from weights and batches the benchmark makes from the seed.
 
 Set-up builds a `Session` (`Session.from_arch`, no checkpoints) and its
-`TransientTrainer` with one member, whose `ShardedLoader` takes the
-benchmark's `TokenFeed`; the benchmark's weights go into the trainer's state.
+`TransientTrainer` with one member, whose `ShardedLoader` takes the feed
+that the cell's reference names (`portbench/feed.py`); the benchmark's
+weights go into the trainer's state.
 The first `CHECKED_STEPS` steps go through `TransientTrainer.run_steps`,
 the window's own call on the window's own feed, and warm every shape up;
 the program's readings are taken from its state between them (its first
@@ -31,7 +32,6 @@ from typing import Dict, Optional
 import torch
 
 from portbench import check, harness, weights
-from portbench.feed import TokenFeed
 from portbench.reference import train as plain
 from portbench.trace import Trace, capture, span
 
@@ -70,8 +70,21 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def feed_for(cell, dims: dict, seed: int) -> TokenFeed:
-    return TokenFeed(dims["vocab"], cell.traffic["seq_len"], seed)
+def feed_for(cell, dims: dict, seed: int):
+    """The feed the cell's reference names, for its traffic and seed."""
+    return cell.reference().FEED.for_cell(dims, cell.traffic, seed)
+
+
+def checked_batches(cell, dims: dict, seed: int, device,
+                    rows_kept: Optional[int] = None) -> list:
+    """The checked steps' batches as the program's loader draws them, every
+    key the feed yields, the first ``rows_kept`` rows of each where
+    given."""
+    feed = feed_for(cell, dims, seed)
+    return [{k: torch.from_numpy(v[:rows_kept]).to(device)
+             for k, v in feed.batch(step, 0, 1,
+                                    cell.traffic["global_batch"]).items()}
+            for step in range(CHECKED_STEPS)]
 
 
 def _check_program_config(cfg, stated: dict) -> None:
@@ -195,12 +208,7 @@ def reference_readings(cell, seed: int, device, cast=plain.identity,
     dims = ref.dims(cell.config)
     specs = ref.param_specs(dims)
     t = cell.traffic
-    feed = feed_for(cell, dims, seed)
-    batches = []
-    for step in range(CHECKED_STEPS):
-        b = feed.batch(step, 0, 1, t["global_batch"])
-        batches.append(tuple(torch.from_numpy(b[k][:rows_kept]).to(device)
-                             for k in ("tokens", "labels")))
+    batches = checked_batches(cell, dims, seed, device, rows_kept)
     against = against or {}
     diffs = {label: {} for label in against}
     kept = {}

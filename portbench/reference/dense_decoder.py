@@ -20,11 +20,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from portbench import yardstick
+from portbench.feed import TokenFeed
 from portbench.reference.train import as_run, cross_entropy_sum, rmsnorm
 
 LAYER_KEYS = ("layers/ln1/scale", "layers/attn/wq", "layers/attn/wk",
               "layers/attn/wv", "layers/attn/wo", "layers/ln2/scale",
               "layers/mlp/wg", "layers/mlp/wi", "layers/mlp/wo")
+
+#: the batches this model reads: token ids
+FEED = TokenFeed
 
 
 def dims(cfg: dict) -> dict:

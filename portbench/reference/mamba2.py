@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from portbench import yardstick
+from portbench.feed import TokenFeed
 from portbench.reference.train import as_run, cross_entropy_sum, rmsnorm
 
 LAYER_KEYS = ("layers/ln/scale", "layers/mixer/in_proj",
@@ -32,6 +33,9 @@ LAYER_KEYS = ("layers/ln/scale", "layers/mixer/in_proj",
               "layers/mixer/dt_bias", "layers/mixer/A_log",
               "layers/mixer/D", "layers/mixer/norm",
               "layers/mixer/out_proj")
+
+#: the batches this model reads: token ids
+FEED = TokenFeed
 
 
 def dims(cfg: dict) -> dict:

@@ -4,21 +4,23 @@ what else the card holds, the clip to a global norm, and AdamW with the
 linear warm-up and cosine decay the traffic file states. fp32 throughout,
 with TF32 off.
 
-A family module gives `loss_sum(w, dims, tokens, labels, cast)`, the summed
-cross-entropy of a block of rows; ``w`` maps each parameter name to its leaf,
-or, for a name under ``layers/``, to the list of its layers' slices. ``cast``
-is applied to both operands of every product and to the residual stream:
-the identity for the reference, `fp8` for the control that computes in the
-precision below the configuration's bf16.
+A family module gives `loss_sum(w, dims, **rows, cast)`, the summed
+cross-entropy of a block of rows, whose keyword arguments are the keys its
+feed's batches hold (``tokens`` and ``labels``, or ``features`` and
+``labels``); ``w`` maps each parameter name to its leaf, or, for a name under
+``layers/``, to the list of its layers' slices. ``cast`` is applied to both
+operands of every product and to the residual stream: the identity for the
+reference, `fp8` for the control that computes in the precision below the
+configuration's bf16.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-Batch = Tuple[torch.Tensor, torch.Tensor]
+Batch = Dict[str, torch.Tensor]   # a feed's batch, key by key
 
 
 def identity(x: torch.Tensor) -> torch.Tensor:
@@ -117,12 +119,13 @@ def follow(family, dims: dict, weights: Dict[str, torch.Tensor],
     b1, b2, eps, wd = opt["b1"], opt["b2"], opt["eps"], opt["weight_decay"]
     losses: List[float] = []
     grad_norms: Dict[str, float] = {}
-    for step, (tokens, labels) in enumerate(batches):
-        n_tokens = tokens.numel()
+    for step, batch in enumerate(batches):
+        n_tokens = batch["labels"].numel()
         total = 0.0
-        for r in range(0, tokens.shape[0], rows):
-            loss = family.loss_sum(leaves, dims, tokens[r:r + rows],
-                                   labels[r:r + rows], cast) / n_tokens
+        for r in range(0, batch["labels"].shape[0], rows):
+            block = {k: v[r:r + rows] for k, v in batch.items()}
+            loss = family.loss_sum(leaves, dims, cast=cast,
+                                   **block) / n_tokens
             loss.backward()
             total += float(loss.detach())
         losses.append(total)

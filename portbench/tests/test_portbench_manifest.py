@@ -11,7 +11,7 @@ import time
 
 import pytest
 
-from portbench.tests.smoke import smoke_root  # noqa: F401
+from portbench.tests.smoke import QUEUED, smoke_root  # noqa: F401
 from portbench import harness
 
 MANIFEST = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
@@ -52,14 +52,15 @@ def test_manifest_keys_and_names():
     assert all(NAME.match(n) for n in names) and len(set(names)) == len(names)
 
 
-@pytest.mark.parametrize("workload", CELLS)
-def test_every_file_of_a_cell_is_found_by_name(workload):
-    cell = harness.find_cell(workload)
+@pytest.mark.parametrize("workload", CELLS + [QUEUED["workload"]["name"]])
+def test_every_file_of_a_cell_is_found_by_name(workload, smoke_root):
+    """Each cell's files; the queued cell's by its entries alone."""
+    cell = harness.find_cell(workload, smoke_root)
     assert cell.kind().run and cell.reference().loss_sum
     for m in cell.end_to_end + cell.per_layer:
         assert callable(harness.load(cell.file("metrics",
                                                m["name"] + ".py")).read)
-    config = next(c for c in MANIFEST["configs"]
+    config = next(c for c in MANIFEST["configs"] + [QUEUED["config"]]
                   if c["name"] == cell.config["name"])
     assert cell.config["reduced"] == config["reduced"]
     assert cell.config["source"] == config["source"]
@@ -68,7 +69,8 @@ def test_every_file_of_a_cell_is_found_by_name(workload):
         "moment_gap_median", "change_gap"}
 
 
-@pytest.mark.parametrize("config", [c["name"] for c in MANIFEST["configs"]])
+@pytest.mark.parametrize("config", [c["name"] for c in MANIFEST["configs"]
+                                    + [QUEUED["config"]]])
 def test_configuration_is_the_ports_at_full_width(config):
     """The file's statement of the program's configuration is the port's,
     and the reference's weights are the port's tree, name for name and
@@ -78,7 +80,8 @@ def test_configuration_is_the_ports_at_full_width(config):
     from repro_torch.tree import flatten
     from portbench.kinds.train import _check_program_config
     from portbench import weights
-    entry = next(c for c in MANIFEST["configs"] if c["name"] == config)
+    entry = next(c for c in MANIFEST["configs"] + [QUEUED["config"]]
+                 if c["name"] == config)
     cfg_file = json.loads((harness.ROOT / entry["file"]).read_text())
     cfg = get_config(cfg_file["program"]["arch"], smoke=False)
     _check_program_config(cfg, cfg_file["program"]["config"])

@@ -11,7 +11,8 @@ from portbench.tests.smoke import smoke_root  # noqa: F401
 from portbench import check, harness, weights
 from portbench.reference import train as plain
 
-CELLS = ["stablelm-smoke.train", "mamba2-smoke.train"]
+CELLS = ["stablelm-smoke.train", "mamba2-smoke.train",
+         "hubert-smoke.train"]
 
 
 def _port(cell):
@@ -30,6 +31,7 @@ def _port(cell):
 
 
 def _batch(cell, dims, seed):
+    """Two rows of the feed that the cell's reference names, every key."""
     from portbench.kinds.train import feed_for
     b = feed_for(cell, dims, seed).batch(0, 0, 1, 2)
     return {k: torch.from_numpy(v) for k, v in b.items()}
@@ -52,8 +54,8 @@ def test_loss_and_gradients_equal_the_ports(smoke_root, workload):
 
     w = weights.make_all(specs, 7, "cpu")
     leaves = plain._leaves(w)
-    ref_loss = ref.loss_sum(leaves, dims, batch["tokens"], batch["labels"],
-                            plain.identity) / batch["tokens"].numel()
+    ref_loss = ref.loss_sum(leaves, dims, cast=plain.identity,
+                            **batch) / batch["labels"].numel()
     ref_loss.backward()
     assert float(loss.detach()) == pytest.approx(float(ref_loss.detach()),
                                                  rel=1e-5)
@@ -82,7 +84,7 @@ def test_adamw_step_equals_the_ports(smoke_root, workload):
 
     theirs = plain.follow(
         ref, dims, weights.make_all(specs, 3, "cpu"),
-        [(batch["tokens"], batch["labels"])], cell.traffic["optimizer"],
+        [batch], cell.traffic["optimizer"],
         initial=lambda n: weights.make_leaf(specs, n, 3, "cpu"), rows=2)
     assert float(metrics["loss"]) == pytest.approx(theirs["losses"][0],
                                                    rel=1e-5)

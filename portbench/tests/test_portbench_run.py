@@ -17,7 +17,7 @@ import torch
 from portbench.tests.smoke import cuda, smoke_root  # noqa: F401
 from portbench import harness
 
-CELLS = ["stablelm-smoke.train", "mamba2-smoke.train"]
+CELLS = ["stablelm-smoke.train", "mamba2-smoke.train", "hubert-smoke.train"]
 RESULT_KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
